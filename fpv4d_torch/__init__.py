@@ -1,0 +1,26 @@
+"""fpv4d_torch — the PyTorch/CUDA port of fpv4d for one NVIDIA H100.
+
+The JAX package ``fpv4d`` is the reference; this package mirrors its
+layout (config, core, models, ops, solve, utils) so each module's
+counterpart is easy to find, and imports nothing from it. The only
+imports are torch, numpy, ctypes and the standard library.
+
+Numerics: float32 throughout. Importing the package turns TF32 off for
+both CUDA matmuls and cuDNN (``torch.backends.cuda.matmul.allow_tf32``
+and ``torch.backends.cudnn.allow_tf32`` are set to False), so every
+float32 product on the card runs in full float32, as the reference's
+tests run JAX at the highest matmul precision.
+
+Entry points (``solve.clip_solve.ClipSolver``,
+``utils.bench_problem.standard_problem``) take ``device=`` and default
+to ``"cuda"``; the CPU is used only when the caller asks for it.
+
+Hand-written kernels live in ``csrc/`` and are built with nvcc at
+first use into ``fpv4d_torch/_build/`` (see ``ops/cand_cuda.py``).
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,196 @@
+"""Per-step contact nearest-neighbour: hand-written CUDA kernel K1 and
+its plain PyTorch version.
+
+Replaces the TPU kernel ``_cand_kernel`` of fpv4d/ops/cand_pallas.py
+(launched from ``_forward``, public entry ``cand_nn``) and serves the
+f32 ``nn_to_candidates`` contract of fpv4d/ops/nn.py: for each frame t
+and query q[t, n], the nearest of the frame's P candidates, where
+invalid slots count as 1e4 and ties go to the smallest slot; the output
+distance is min(d, 1e4), and ``nearest`` is the winner's coordinates,
+or q itself where the distance saturates. The gradient is
+2 (q - nearest) g where dist < 1e4, and 0 elsewhere.
+
+The TPU kernel's bf16x3 splits, packed-index int-min and one-hot
+matmuls exist only because Mosaic ignores f32 matmul precision; here
+the kernel (csrc/cand_nn.cu) computes f32 differences directly, one
+thread per query, with the frame's candidates staged in shared memory.
+Its distance is written with __fmul_rn/__fadd_rn so nvcc cannot fuse
+it into FMAs: it is then bit-identical to ``cand_nn_plain`` on the card,
+whose elementwise ops run as separate kernels.
+
+The kernel is built with nvcc at first use (``build()``) from the
+source in the repository into ``fpv4d_torch/_build/`` (git-ignored) as
+a shared library with a plain C interface, loaded with ctypes. Only the
+function that launches it needs the CUDA toolkit; importing this module
+does not.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Tuple
+
+import torch
+
+BIG = 1e4
+
+# kernel launches since the count was last reset (a plain integer: a
+# run sets it to 0 and reads it back to show the path used the kernel)
+launches = 0
+
+_PKG = Path(__file__).resolve().parents[1]
+_SRC = _PKG / "csrc" / "cand_nn.cu"
+_BUILD_DIR = _PKG / "_build"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v")
+_lib = None
+build_log = ""
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                       "the CUDA toolkit's nvcc")
+
+
+def build() -> float:
+    """Compile (if not already built for this source) and load the
+    kernel library; returns the seconds it took. The library's name
+    carries a hash of the source, so an edited source rebuilds."""
+    global _lib, build_log
+    if _lib is not None:
+        return 0.0
+    t0 = time.perf_counter()
+    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
+    so = _BUILD_DIR / f"libcand_nn_{tag}.so"
+    if not so.exists():
+        _BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        res = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
+                              str(_SRC)], capture_output=True, text=True)
+        build_log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    fn = lib.cand_nn_forward
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return time.perf_counter() - t0
+
+
+def dist_sq_tnp(q: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """Squared distances [T, N, P] with the xyz axis unrolled into three
+    elementwise terms, summed (dx*dx + dy*dy) + dz*dz (the reference's
+    order, nn.py:506-519)."""
+    dx = q[:, :, None, 0] - cand[:, None, :, 0]
+    dy = q[:, :, None, 1] - cand[:, None, :, 1]
+    dz = q[:, :, None, 2] - cand[:, None, :, 2]
+    return (dx * dx + dy * dy) + dz * dz
+
+
+def _empty(q: torch.Tensor):
+    T, N, _ = q.shape
+    return (torch.full((T, N), BIG, dtype=q.dtype, device=q.device),
+            torch.zeros((T, N), dtype=torch.int32, device=q.device),
+            q.clone())
+
+
+def cand_nn_plain(q: torch.Tensor, cand: torch.Tensor,
+                  valid: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1: q [T,N,3], cand [T,P,3], valid [T,P]
+    -> (dist [T,N] f32, slot [T,N] int32, nearest [T,N,3] f32)."""
+    if cand.shape[1] == 0:
+        return _empty(q)
+    d = torch.where(valid[:, None, :], dist_sq_tnp(q, cand), BIG)
+    dmin, slot = torch.min(d, dim=-1)      # ties -> the smallest slot
+    dist = torch.clamp(dmin, max=BIG)
+    near = torch.gather(cand, 1, slot[..., None].expand(-1, -1, 3))
+    nearest = torch.where((dist < BIG)[..., None], near, q)
+    return dist, slot.to(torch.int32), nearest
+
+
+def cand_nn_cuda(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 on the card; same contract as cand_nn_plain. Raises on
+    anything the kernel does not take."""
+    global launches
+    if not (q.is_cuda and cand.is_cuda and valid.is_cuda):
+        raise ValueError("cand_nn_cuda takes CUDA tensors")
+    if q.dtype != torch.float32 or cand.dtype != torch.float32 \
+            or valid.dtype != torch.bool:
+        raise ValueError("cand_nn_cuda takes f32 q/cand and bool valid")
+    T, N, c3 = q.shape
+    if c3 != 3 or cand.shape[0] != T or cand.shape[2] != 3 \
+            or tuple(valid.shape) != tuple(cand.shape[:2]):
+        raise ValueError(f"shapes q {tuple(q.shape)}, cand "
+                         f"{tuple(cand.shape)}, valid {tuple(valid.shape)}")
+    if T * N * 3 >= 2 ** 31 or T * cand.shape[1] * 3 >= 2 ** 31:
+        raise ValueError("cand_nn_cuda: tensors exceed int32 indexing")
+    P = cand.shape[1]
+    if P == 0 or T == 0 or N == 0:
+        return _empty(q)
+    build()
+    q, cand, valid = q.contiguous(), cand.contiguous(), valid.contiguous()
+    dist = torch.empty((T, N), dtype=torch.float32, device=q.device)
+    slot = torch.empty((T, N), dtype=torch.int32, device=q.device)
+    nearest = torch.empty((T, N, 3), dtype=torch.float32, device=q.device)
+    err = _lib.cand_nn_forward(
+        q.data_ptr(), cand.data_ptr(), valid.data_ptr(), dist.data_ptr(),
+        slot.data_ptr(), nearest.data_ptr(), T, N, P,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cand_nn kernel launch failed: CUDA error {err}")
+    launches += 1
+    return dist, slot, nearest
+
+
+def cand_nn(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor):
+    """Dispatch on the tensors' device: the plain version for CPU
+    tensors, the kernel for CUDA tensors (never a fallback)."""
+    if q.is_cuda:
+        return cand_nn_cuda(q, cand, valid)
+    return cand_nn_plain(q, cand, valid)
+
+
+class _CandNN(torch.autograd.Function):
+    """dist [T,N] with the gradient 2 (q - nearest) g on live entries
+    (dist < BIG); no gradient to the candidate tables."""
+
+    @staticmethod
+    def forward(ctx, q, cand, valid, forward_fn):
+        dist, _, nearest = forward_fn(q, cand, valid)
+        ctx.save_for_backward(q, nearest, dist < BIG)
+        return dist
+
+    @staticmethod
+    def backward(ctx, g):
+        q, nearest, live = ctx.saved_tensors
+        dq = torch.where(live[..., None],
+                         g[..., None] * 2.0 * (q - nearest), 0.0)
+        return dq, None, None, None
+
+
+def nn_to_candidates(q: torch.Tensor, cand: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """Differentiable squared NN distance [T, N] to per-frame candidates:
+    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    return _CandNN.apply(q, cand, valid, cand_nn)
+
+
+def nn_to_candidates_ref(q: torch.Tensor, cand: torch.Tensor,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """nn_to_candidates through the plain version on any device (the
+    reference the kernel is held against)."""
+    return _CandNN.apply(q, cand, valid, cand_nn_plain)

@@ -1,0 +1,500 @@
+"""Clip-level joint optimization, local mode (port of
+fpv4d/solve/clip_solve.py).
+
+Jointly optimizes, over a whole clip at once, the body parameter
+sequence [T, 78] (6D-rotation layout), a global metric scale, per-frame
+camera extrinsics [T, 4, 4] and DCT trajectory coefficients, with ONE
+Adam state across every phase (as the reference makes its optax state
+once per fit). Local mode runs four stages:
+
+  local_a     reconstruction + smoothness + contact (lazy candidates,
+              refreshed every ``contact_refresh_steps`` steps)
+  local_b     reconstruction + smoothness
+  detection   planted-foot weights from the voxel grid
+  skate       anti-foot-skate refinement of the body sequence
+
+Differences of form from the reference, none of value:
+  * phases are Python loops of eager steps, not one jitted lax.scan;
+  * a phase's gradient mask detaches the leaves it does not optimize,
+    and their ``.grad`` stays a zero tensor (never None, or Adam would
+    skip them): masked leaves keep moving on their Adam moments exactly
+    as the reference's zero gradients make them;
+  * PyTorch does no dead-code elimination, so each phase computes only
+    the terms and the FK call its loss reads (the reference leaves that
+    pruning to XLA).
+
+``global`` and ``dct`` mode, brute-force NN (``nn_impl`` other than
+'grid'), the exact per-step grid query (``contact_refresh_steps=0``),
+the scene-SDF collision term and checkpointing are not ported yet
+(ROADMAP.md, queue 1, item 9: slice 2).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from fpv4d_torch.config import ClipConfig
+from fpv4d_torch.core import rotations, transforms
+from fpv4d_torch.models import params as P
+from fpv4d_torch.models import vposer as VP
+from fpv4d_torch.models.smplx import SmplxModel
+from fpv4d_torch.ops import losses
+from fpv4d_torch.ops import nn as NN
+
+_NOT_PORTED = "not ported yet (ROADMAP.md, queue 1, item 9: slice 2)"
+
+
+class Ctx(NamedTuple):
+    """What the objective reads besides the state."""
+    model: SmplxModel
+    vposer: Dict[str, torch.Tensor]
+    grid: NN.VoxelGrid
+
+
+class ClipState(NamedTuple):
+    """Decision variables, one tensor per reference leaf."""
+    body_6d: torch.Tensor      # [T, 78]
+    scale: torch.Tensor        # scalar
+    camera_ext: torch.Tensor   # [T, 4, 4]
+    c_dct: torch.Tensor        # [W, J_dct, 3, K]
+
+
+class Terms(NamedTuple):
+    """All loss terms of the reference's cal_loss (collision is 0: the
+    scene-SDF term is not ported)."""
+    rec: torch.Tensor
+    vposer: torch.Tensor
+    contact: torch.Tensor
+    smooth: torch.Tensor
+    world_smooth: torch.Tensor
+    dct: torch.Tensor
+
+
+def _mask(body=False, scale=False, camera=False, dct=False) -> ClipState:
+    """Per-leaf gradient mask of one phase."""
+    return ClipState(body, scale, camera, dct)
+
+
+def masked(state: ClipState, mask: ClipState) -> ClipState:
+    """Detach the leaves a phase does not optimize, so the loss builds
+    no backward graph into them."""
+    return ClipState(*(x if m else x.detach() for x, m in zip(state, mask)))
+
+
+# every joints consumer reads joints[:, :23], an ancestor-closed prefix
+# of the SMPL-X tree, so the joints-only FK stops at the body subtree
+_BODY_JOINTS = np.arange(23, dtype=np.int32)
+_DUMMY_VERT = np.zeros(1, np.int32)
+
+
+def forward_world(ctx: Ctx, state: ClipState, vertex_subset=None,
+                  prune=None, merge_joints: bool = False,
+                  with_joints: bool = True
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Dict]:
+    """body_6d -> world-space vertices [T,V,3] and joints [T,23,3]
+    (joints transformed unscaled, as the reference does).
+
+    prune: optional (joint_subset, pose_joint_subset) from
+    model.joint_support(vertex_subset): the vertices then come from a
+    support-pruned forward and the joints from a separate body-subtree
+    call, which is skipped when with_joints is False (the reference
+    relies on XLA to drop it). merge_joints serves both outputs from one
+    call pruned to leg-support u body. Without prune the joints come
+    from the full call, and joints_w is None when with_joints is
+    False."""
+    d = P.split_6d(state.body_6d)
+    latent = d["body_pose"]
+    common = dict(
+        betas=d["betas"], global_orient=torch.zeros_like(d["transl"]),
+        global_orient_matrot=rotations.rot6d_to_matrot(d["global_orient"]),
+        body_pose_matrot=VP.decode(ctx.vposer, latent, output_type="matrot"),
+        transl=d["transl"], left_hand_pose=d["left_hand_pose"],
+        right_hand_pose=d["right_hand_pose"])
+    if prune is None:
+        out = ctx.model(**common, vertex_subset=vertex_subset)
+        verts, joints = out["vertices"], out["joints"]
+    elif merge_joints:
+        js = prune[0]
+        if js is not None:
+            js = np.union1d(np.asarray(js), _BODY_JOINTS).astype(np.int32)
+        out = ctx.model(**common, vertex_subset=vertex_subset,
+                        joint_subset=js, pose_joint_subset=prune[1])
+        verts, joints = out["vertices"], out["joints"]
+    else:
+        verts = ctx.model(**common, vertex_subset=vertex_subset,
+                          joint_subset=prune[0],
+                          pose_joint_subset=prune[1])["vertices"]
+        joints = (ctx.model(**common, vertex_subset=_DUMMY_VERT,
+                            joint_subset=_BODY_JOINTS)["joints"]
+                  if with_joints else None)
+    s = state.scale
+    s_t = s[:, None] if s.ndim else s
+    s_v = s[:, None, None] if s.ndim else s
+    b2w = transforms.body2world(state.camera_ext, d["camera_translation"],
+                                s_t)
+    verts_w = transforms.transform_points(verts * s_v, b2w)
+    joints_w = (transforms.transform_points(joints[:, :23], b2w)
+                if with_joints else None)
+    return verts_w, joints_w, {"latent": latent}
+
+
+def _as_f32(x, device) -> torch.Tensor:
+    """A tensor, or a copy of an array (which may be read-only), as f32
+    on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+class ClipSolver:
+    """Owns the model, VPoser params and scene grid; exposes fit()."""
+
+    def __init__(self, model: SmplxModel, vposer_params: Dict,
+                 scene_verts, contact_vids, contact_vids_left,
+                 contact_vids_right, config: ClipConfig = ClipConfig(),
+                 nn_impl: str = "grid", grid_h: float = 0.25,
+                 grid_slots: int = 8, grid: Optional[NN.VoxelGrid] = None,
+                 device="cuda"):
+        if nn_impl != "grid":
+            raise NotImplementedError(f"nn_impl={nn_impl!r}: {_NOT_PORTED}")
+        if config.contact_refresh_steps <= 0:
+            raise NotImplementedError(
+                "contact_refresh_steps=0 (exact per-step grid query): "
+                + _NOT_PORTED)
+        self.device = torch.device(device)
+        self.config = config
+        self.model = model.to(self.device)
+        self.vposer_params = {k: _as_f32(v, self.device)
+                              for k, v in vposer_params.items()}
+        self.contact_vids = np.asarray(contact_vids, np.int32)
+        self.contact_vids_left = np.asarray(contact_vids_left, np.int32)
+        self.contact_vids_right = np.asarray(contact_vids_right, np.int32)
+        if grid is None:
+            grid = NN.build_voxel_grid(
+                np.asarray(scene_verts, np.float32), h=grid_h,
+                slots_per_cell=grid_slots, device=self.device)
+        else:
+            grid = NN.VoxelGrid(cand_pts=grid.cand_pts.to(self.device),
+                                cand_idx=grid.cand_idx.to(self.device),
+                                origin=grid.origin.to(self.device),
+                                dims=grid.dims, h=grid.h)
+        self.grid = grid
+        self.phase_seconds: Dict[str, float] = {}
+
+        # anti-skate vertex set: stratified sample + both feet
+        n_sub = config.skate_subset
+        if n_sub and n_sub < self.model.num_verts:
+            pool = np.arange(self.model.num_verts, dtype=np.int64)
+            if config.skate_body_only:
+                # vertices skinned only by the body subtree, so the skate
+                # FK prunes to <= 23 joints
+                w = self.model.lbs_weights.detach().cpu().numpy()
+                nb = len(_BODY_JOINTS)
+                if w.shape[1] > nb:
+                    ok = (w[:, nb:] == 0).all(axis=1)
+                    if ok.any():
+                        pool = pool[ok]
+            strat = pool[np.linspace(0, len(pool) - 1,
+                                     min(n_sub, len(pool)), dtype=np.int64)]
+            vids = np.unique(np.concatenate(
+                [strat, self.contact_vids_left, self.contact_vids_right]))
+            self._skate_vids = vids.astype(np.int32)
+            pos = {int(v): i for i, v in enumerate(vids)}
+            skate_left = [pos[int(v)] for v in self.contact_vids_left]
+            skate_right = [pos[int(v)] for v in self.contact_vids_right]
+        else:
+            self._skate_vids = None
+            skate_left, skate_right = (self.contact_vids_left,
+                                       self.contact_vids_right)
+        self._skate_left = torch.as_tensor(np.asarray(skate_left, np.int64),
+                                           device=self.device)
+        self._skate_right = torch.as_tensor(
+            np.asarray(skate_right, np.int64), device=self.device)
+        # static joint-support pruning (None when nothing prunes)
+        self._feet_vids = np.concatenate([self.contact_vids_left,
+                                          self.contact_vids_right])
+        self._contact_prune = self.model.joint_support(self.contact_vids)
+        self._skate_prune = (self.model.joint_support(self._skate_vids)
+                             if self._skate_vids is not None else None)
+        self._feet_prune = self.model.joint_support(self._feet_vids)
+
+    @property
+    def ctx(self) -> Ctx:
+        return Ctx(model=self.model, vposer=self.vposer_params,
+                   grid=self.grid)
+
+    # -- objectives ----------------------------------------------------------
+
+    def terms(self, state: ClipState, target_6d: torch.Tensor,
+              frame_weights: torch.Tensor, cands: NN.FrameCands,
+              prune=None, merge_joints: bool = False) -> Terms:
+        """All cal_loss terms, with the contact term against `cands`.
+        The phases compute only the terms they read (phase_loss); this
+        full form serves inspection and the parity tests."""
+        w = self.config.weights
+        verts_w, joints_w, aux = forward_world(
+            self.ctx, state, vertex_subset=self.contact_vids, prune=prune,
+            merge_joints=merge_joints)
+        return Terms(
+            rec=w.rec * losses.rec_l1(target_6d, state.body_6d,
+                                      frame_weights),
+            vposer=w.vposer * losses.vposer_prior(aux["latent"]),
+            contact=w.contact * losses.robust_contact(
+                NN.nn_to_candidates(verts_w, cands)),
+            smooth=losses.second_order_smoothness(state.body_6d),
+            world_smooth=losses.first_order_smoothness(joints_w),
+            dct=losses.dct_trajectory(joints_w, state.c_dct,
+                                      self.config.window))
+
+    def terms2(self, state: ClipState, target_6d: torch.Tensor,
+               frame_weights: torch.Tensor, weight_right: torch.Tensor
+               ) -> Tuple[torch.Tensor, ...]:
+        """cal_loss2: (rec, local_smooth, vert_smooth, skate) of the
+        anti-skate phase, on the stratified vertex subset when
+        config.skate_subset > 0."""
+        w = self.config.weights
+        verts_w, _, _ = forward_world(self.ctx, state,
+                                      vertex_subset=self._skate_vids,
+                                      prune=self._skate_prune,
+                                      with_joints=False)
+        rec = w.rec * losses.rec_l1(target_6d, state.body_6d, frame_weights)
+        local_smooth = losses.second_order_smoothness(state.body_6d)
+        vert_smooth = losses.second_order_smoothness(verts_w)
+        skate = losses.foot_skate(verts_w[:, self._skate_left],
+                                  verts_w[:, self._skate_right],
+                                  weight_right)
+        return rec, local_smooth, vert_smooth, skate
+
+    def phase_loss(self, phase: str, state: ClipState, target_6d,
+                   frame_weights, cands: Optional[NN.FrameCands] = None
+                   ) -> torch.Tensor:
+        """Stage loss recipes, each computing only the terms it reads."""
+        cfg = self.config
+        w = cfg.weights
+        rec = w.rec * losses.rec_l1(target_6d, state.body_6d, frame_weights)
+        smooth = losses.second_order_smoothness(state.body_6d)
+        if phase == "local_a":
+            # verts only: the body-subtree joints FK and the DCT term
+            # are not read
+            verts_w, _, _ = forward_world(
+                self.ctx, state, vertex_subset=self.contact_vids,
+                prune=self._contact_prune, with_joints=False)
+            contact = w.contact * losses.robust_contact(
+                NN.nn_to_candidates(verts_w, cands))
+            return contact * cfg.local_contact_mult + smooth + rec
+        if phase == "local_b":
+            return rec + smooth * cfg.phase_b_smooth_mult
+        raise NotImplementedError(f"phase {phase!r}: {_NOT_PORTED}")
+
+    @staticmethod
+    def phase_mask(phase: str) -> ClipState:
+        return {"local_a": _mask(body=True, scale=True),
+                "local_b": _mask(body=True, camera=True),
+                "skate": _mask(body=True)}[phase]
+
+    # -- contact tables --------------------------------------------------------
+
+    @torch.no_grad()
+    def _refresh_cands(self, state: ClipState) -> NN.FrameCands:
+        """Rebuild the per-frame candidate tables from the current
+        world-space contact vertices (between step chunks)."""
+        verts_w, _, _ = forward_world(
+            self.ctx, state, vertex_subset=self.contact_vids,
+            prune=self._contact_prune, with_joints=False)
+        fc = NN.frame_candidates(self.grid, verts_w,
+                                 self.config.contact_cell_budget)
+        if self.config.contact_compact:
+            fc = NN.compact_candidates(verts_w, fc,
+                                       self.config.contact_compact)
+        return fc
+
+    @torch.no_grad()
+    def detect_contact(self, state: ClipState) -> torch.Tensor:
+        """Per-frame planted-foot weight, left/(left+right), from the
+        mean grid NN distance of each foot's vertices."""
+        n_left = len(self.contact_vids_left)
+        verts_w, _, _ = forward_world(self.ctx, state,
+                                      vertex_subset=self._feet_vids,
+                                      prune=self._feet_prune,
+                                      with_joints=False)
+        d_l = torch.mean(NN.grid_min_dist(self.grid, verts_w[:, :n_left]),
+                         dim=1)
+        d_r = torch.mean(NN.grid_min_dist(self.grid, verts_w[:, n_left:]),
+                         dim=1)
+        return losses.planted_foot_weight(d_l, d_r)
+
+    # -- init ----------------------------------------------------------------
+
+    @staticmethod
+    def init_core(body_75: torch.Tensor, outlier_factor: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Outlier-aware init -> (seeded body_6d, target_6d,
+        frame_weights): frames whose VPoser latent energy exceeds
+        outlier_factor x mean get weight 0 and are re-seeded from the
+        nearest good frame (ties to the earlier frame)."""
+        T = body_75.shape[0]
+        body_6d = rotations.params_to_6d(body_75)
+        a, b = P.VPOSER_SLICE
+        stats = torch.sum(body_75[:, a:b] ** 2, dim=1)
+        good = stats <= outlier_factor * torch.mean(stats)
+        idx = torch.arange(T, device=body_75.device)
+        dist = (torch.abs(idx[:, None] - idx[None, :])
+                + torch.where(good[None, :], 0, 10 * T))
+        nearest_good = torch.argmin(dist, dim=1)
+        seed_from = torch.where(good, idx, nearest_good)
+        return body_6d[seed_from], body_6d, good.to(torch.float32)
+
+    @torch.no_grad()
+    def init_state(self, body_75, camera_ext
+                   ) -> Tuple[ClipState, torch.Tensor, torch.Tensor]:
+        """Seed the decision variables -> (state, target_6d,
+        frame_weights)."""
+        cfg = self.config
+        body_75 = _as_f32(body_75, self.device)
+        T = body_75.shape[0]
+        body_init, target_6d, weights = self.init_core(body_75,
+                                                       cfg.outlier_factor)
+        c_dct = torch.zeros((T // cfg.window, cfg.num_dct_joints, 3,
+                             cfg.dct_num), device=self.device)
+        state = ClipState(
+            body_6d=body_init,
+            scale=torch.tensor(cfg.scale_init, dtype=torch.float32,
+                               device=self.device),
+            camera_ext=_as_f32(camera_ext, self.device).clone(),
+            c_dct=c_dct)
+        if cfg.dct_closed_form_init:
+            _, joints_w, _ = forward_world(
+                self.ctx, state, vertex_subset=self.contact_vids,
+                prune=self._contact_prune)
+            state = state._replace(c_dct=losses.dct_encode(
+                joints_w[:, :cfg.num_dct_joints], cfg.window, cfg.dct_num))
+        return state, target_6d, weights
+
+    # -- phase runner ----------------------------------------------------------
+
+    def make_optimizer(self, state: ClipState
+                       ) -> Tuple[ClipState, torch.optim.Adam]:
+        """Fresh leaf tensors + ONE Adam over all four leaves. Every
+        leaf's .grad starts as a zero tensor and is zeroed in place each
+        step, so leaves a phase does not reach still take Adam steps."""
+        leaves = [x.detach().clone().requires_grad_(True) for x in state]
+        for p in leaves:
+            p.grad = torch.zeros_like(p)
+        return ClipState(*leaves), torch.optim.Adam(leaves,
+                                                    lr=self.config.lr)
+
+    @staticmethod
+    def _run_steps(state: ClipState, opt: torch.optim.Adam, mask: ClipState,
+                   num_steps: int, loss_fn) -> torch.Tensor:
+        """num_steps Adam steps of loss_fn(masked state) -> per-step
+        losses [num_steps] (kept on the device; read once per phase)."""
+        hist = torch.empty(num_steps, dtype=torch.float32,
+                           device=state.body_6d.device)
+        for i in range(num_steps):
+            opt.zero_grad(set_to_none=False)
+            loss = loss_fn(masked(state, mask))
+            loss.backward()
+            opt.step()
+            hist[i] = loss.detach()
+        return hist
+
+    def _run_phase(self, state, opt, target_6d, frame_weights,
+                   num_steps: int, phase: str,
+                   cands: Optional[NN.FrameCands] = None) -> torch.Tensor:
+        return self._run_steps(
+            state, opt, self.phase_mask(phase), num_steps,
+            lambda st: self.phase_loss(phase, st, target_6d, frame_weights,
+                                       cands))
+
+    def _run_phase_auto(self, state, opt, target_6d, frame_weights,
+                        num_steps: int, phase: str) -> torch.Tensor:
+        """Contact phases run as chunks of contact_refresh_steps steps,
+        rebuilding the candidate tables before each chunk."""
+        if phase != "local_a":
+            return self._run_phase(state, opt, target_6d, frame_weights,
+                                   num_steps, phase)
+        chunk = self.config.contact_refresh_steps
+        hists = []
+        left = num_steps
+        while left > 0:
+            k = min(chunk, left)
+            cands = self._refresh_cands(state)
+            hists.append(self._run_phase(state, opt, target_6d,
+                                         frame_weights, k, phase, cands))
+            left -= k
+        return torch.cat(hists)
+
+    def _run_skate_phase(self, state, opt, target_6d, frame_weights,
+                         num_steps: int, weight_right) -> torch.Tensor:
+        """Anti-foot-skate refinement over the body sequence only."""
+        def loss_fn(st):
+            rec, local_s, vert_s, skate = self.terms2(
+                st, target_6d, frame_weights, weight_right)
+            return vert_s + local_s + rec + skate
+
+        return self._run_steps(state, opt, self.phase_mask("skate"),
+                               num_steps, loss_fn)
+
+    # -- public API ------------------------------------------------------------
+
+    def fit(self, body_75, camera_ext, mode: str = "local",
+            verbose: bool = False
+            ) -> Tuple[ClipState, Dict[str, np.ndarray]]:
+        """Run the staged solve. body_75 [T,75] packed SMPLify-X outputs,
+        camera_ext [T,4,4] world-from-camera init (numpy or tensors).
+        Returns the final state and the per-step loss history of each
+        phase; the wall seconds of each stage land in
+        ``self.phase_seconds``."""
+        if mode != "local":
+            raise NotImplementedError(f"mode={mode!r}: {_NOT_PORTED}")
+        cfg = self.config
+        hist: Dict[str, np.ndarray] = {}
+        self.phase_seconds = {}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            if isinstance(out, torch.Tensor):
+                out = out.cpu()          # waits for the device
+            self.phase_seconds[name] = time.perf_counter() - t0
+            return out
+
+        # 'init' includes the process's first torch.optim construction,
+        # which imports torch._dynamo (seconds, once per process)
+        def init():
+            state, target_6d, frame_weights = self.init_state(body_75,
+                                                              camera_ext)
+            return (*self.make_optimizer(state), target_6d, frame_weights)
+
+        state, opt, target_6d, frame_weights = timed("init", init)
+        n_a = int(cfg.num_iter * cfg.stage_split)
+        n_b = cfg.num_iter - n_a
+        hist["local_a"] = timed("local_a", lambda: self._run_phase_auto(
+            state, opt, target_6d, frame_weights, n_a, "local_a")).numpy()
+        hist["local_b"] = timed("local_b", lambda: self._run_phase_auto(
+            state, opt, target_6d, frame_weights, n_b, "local_b")).numpy()
+        weight_right = timed("detect_contact",
+                             lambda: self.detect_contact(state))
+        weight_right = weight_right.to(self.device)
+        n_c = int(cfg.contact_phase_frac * cfg.num_iter)
+        hist["local_skate"] = timed("local_skate", lambda:
+                                    self._run_skate_phase(
+                                        state, opt, target_6d,
+                                        frame_weights, n_c,
+                                        weight_right)).numpy()
+        if verbose:
+            for k, v in hist.items():
+                print(f"[fpv4d_torch.clip_solve] {k}: loss {v[0]:.4f} -> "
+                      f"{v[-1]:.4f} ({len(v)} steps)")
+        return ClipState(*(x.detach() for x in state)), hist
+
+    def result_params(self, state: ClipState
+                      ) -> Tuple[np.ndarray, float, np.ndarray]:
+        """Final (body_75 [T,75], scale, camera_ext [T,4,4]) as numpy."""
+        with torch.no_grad():
+            body = rotations.params_to_3d(state.body_6d)
+        return (body.cpu().numpy(), float(state.scale),
+                state.camera_ext.detach().cpu().numpy())

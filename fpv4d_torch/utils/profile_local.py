@@ -1,0 +1,132 @@
+"""Per-step profile of the local-mode clip solve on the card.
+
+    python -m fpv4d_torch.utils.profile_local [--steps 20]
+
+Builds the standard problem at full size, seeds the state and the one
+Adam state as ``ClipSolver.fit`` does, and measures each unit of the
+local-mode solve in turn: a candidate-table refresh, a local_a step
+(contact against the refreshed tables), a local_b step and a skate
+step. For each unit it times ``--steps`` runs on the host clock around
+a synchronised window, then profiles ``--steps`` more with
+torch.profiler and sums the device time of every kernel. It prints one
+JSON object: the card's name and power limit and, per unit, wall ms,
+device-busy ms and busy share per run, K1's device ms per run, kernel
+launches per run and the kernels with the most device time.
+
+Exits non-zero without a CUDA device unless ``--device cpu`` is given
+(a rehearsal of the control flow at a small size: no device numbers).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+from fpv4d_torch.utils.bench_problem import standard_problem
+
+
+def _sync(dev: torch.device):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _kernel_times(prof):
+    """(name, total device us, count) of every kernel and copy on the
+    device (annotated ranges, such as Optimizer.step, overlap them and
+    are left out)."""
+    out = []
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        out.append((e.key, float(us), int(e.count)))
+    return sorted(out, key=lambda r: -r[1])
+
+
+def measure(fn, steps: int, dev: torch.device, top: int = 6) -> dict:
+    """Wall and device time per run of fn(n) (which runs n units)."""
+    fn(3)                                          # warm-up
+    _sync(dev)
+    t0 = time.perf_counter()
+    fn(steps)
+    _sync(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    rec = {"wall_ms": wall_ms, "device_ms": None, "busy_share": None,
+           "k1_ms": None, "launches": None, "top": None}
+    if dev.type != "cuda":
+        return rec
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn(steps)
+        _sync(dev)
+    ks = _kernel_times(prof)
+    dev_ms = sum(us for _, us, _ in ks) / 1e3 / steps
+    k1_us = sum(us for k, us, _ in ks if "cand_nn_kernel" in k)
+    rec.update(device_ms=dev_ms, busy_share=dev_ms / wall_ms,
+               k1_ms=k1_us / 1e3 / steps,
+               launches=sum(c for _, _, c in ks) / steps,
+               top=[{"kernel": k[:96], "ms": us / 1e3 / steps,
+                     "per_step": c / steps} for k, us, c in ks[:top]])
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--T", type=int, default=900)
+    ap.add_argument("--num-verts", type=int, default=10475)
+    ap.add_argument("--scene-pts", type=int, default=100_489)
+    args = ap.parse_args(argv)
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        print("profile_local: no CUDA device available", file=sys.stderr)
+        return 1
+
+    prob = standard_problem(T=args.T, num_verts=args.num_verts,
+                            scene_pts=args.scene_pts, device=dev)
+    s = prob.solver
+    state, target, fw = s.init_state(prob.body, prob.cam)
+    state, opt = s.make_optimizer(state)
+    cands = s._refresh_cands(state)
+    weight_right = s.detect_contact(state)
+
+    def refresh(n):
+        for _ in range(n):
+            s._refresh_cands(state)
+
+    units = {
+        "refresh": refresh,
+        "local_a": lambda n: s._run_phase(state, opt, target, fw, n,
+                                          "local_a", cands),
+        "local_b": lambda n: s._run_phase(state, opt, target, fw, n,
+                                          "local_b"),
+        "local_skate": lambda n: s._run_skate_phase(
+            state, opt, target, fw, n, weight_right),
+    }
+    out = {"device": None, "power_limit": None, "T": args.T,
+           "contact_vertices": len(s.contact_vids),
+           "P": int(cands.cand.shape[1]), "steps": args.steps}
+    if dev.type == "cuda":
+        out["device"] = torch.cuda.get_device_name(dev)
+        out["power_limit"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[0]
+    for name, fn in units.items():
+        out[name] = measure(fn, args.steps, dev)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

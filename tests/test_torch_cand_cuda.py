@@ -1,0 +1,93 @@
+"""K1 (fpv4d_torch/csrc/cand_nn.cu) and its wrapper.
+
+On the CPU the wrapper takes the plain version, and only because the
+tensors lie on the CPU; the kernel itself runs only on a CUDA card:
+those tests carry the `gpu` marker and skip here (see README, "PyTorch
+port (H100)", for the command that runs them on the card). On the card
+the kernel is held bit-exactly against the plain version: its distance
+is computed without FMA contraction, so no tolerance is needed."""
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from fpv4d_torch.ops import cand_cuda as C
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(T=7, N=300, P=192, seed=0, device="cpu"):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(T, N, 3).astype(np.float32)
+    cand = rng.randn(T, P, 3).astype(np.float32)
+    valid = rng.rand(T, P) > 0.3
+    valid[3] = False                          # an empty frame
+    cand[:, 1] = cand[:, 0]                   # duplicate candidates
+    return (torch.as_tensor(q, device=device),
+            torch.as_tensor(cand, device=device),
+            torch.as_tensor(valid, device=device))
+
+
+def test_cpu_tensors_take_plain_version():
+    q, cand, valid = _inputs()
+    before = C.launches
+    d, slot, near = C.cand_nn(q, cand, valid)
+    d_p, s_p, n_p = C.cand_nn_plain(q, cand, valid)
+    assert C.launches == before               # no kernel launch counted
+    assert torch.equal(d, d_p) and torch.equal(slot, s_p)
+    assert torch.equal(near, n_p)
+    assert slot.dtype == torch.int32 and d.shape == (7, 300)
+    assert torch.all(d[3] == C.BIG) and torch.equal(near[3], q[3])
+
+
+def test_plain_version_ties_to_smallest_slot():
+    q = torch.zeros(1, 2, 3)
+    cand = torch.zeros(1, 5, 3)
+    cand[0, :, 0] = torch.tensor([3.0, 1.0, 1.0, -1.0, 2.0])
+    valid = torch.tensor([[True, True, True, True, True]])
+    _, slot, _ = C.cand_nn_plain(q, cand, valid)
+    assert slot.tolist() == [[1, 1]]          # 1 and 2 and 3 tie at d=1
+
+
+def test_kernel_wrapper_rejects_cpu_tensors():
+    q, cand, valid = _inputs()
+    with pytest.raises(ValueError):
+        C.cand_nn_cuda(q, cand, valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [192, 512, 700])
+def test_kernel_matches_plain_bit_exactly(cuda_device, P):
+    q, cand, valid = _inputs(P=P, device=cuda_device)
+    before = C.launches
+    d_k, s_k, n_k = C.cand_nn_cuda(q, cand, valid)
+    d_p, s_p, n_p = C.cand_nn_plain(q, cand, valid)
+    assert C.launches == before + 1
+    assert torch.equal(d_k, d_p) and torch.equal(s_k, s_p)
+    assert torch.equal(n_k, n_p)
+    qk = q.clone().requires_grad_(True)
+    qp = q.clone().requires_grad_(True)
+    C.nn_to_candidates(qk, cand, valid).sum().backward()
+    C.nn_to_candidates_ref(qp, cand, valid).sum().backward()
+    assert torch.equal(qk.grad, qp.grad)
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """chip_smoke.py exits non-zero and prints no result when no CUDA
+    device is available."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run in full")
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, str(root / "chip_smoke.py")],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout
