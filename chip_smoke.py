@@ -6,29 +6,54 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, each fatal on failure:
   1. device     the card's name and power limit (nvidia-smi);
-  2. build      K1 (fpv4d_torch/csrc/cand_nn.cu) built with nvcc;
+  2. build      K1 (csrc/cand_nn.cu) and K2 (csrc/chamfer_nn.cu), one
+                nvcc each, started together; ptxas' register lines;
   3. K1         the kernel held bit-exactly against its plain PyTorch
                 version on the standard problem's candidate tables
                 ([900, N, 192] compacted, [900, N, 512] uncompacted),
                 plus an all-invalid frame and duplicate candidates;
                 kernel, plain and library (torch.cdist + min) times;
-  4. main path  the full-size standard local-mode clip solve
-                (T=900, V=10,475, 100,489 scene points, compact 192,
-                skate 1024 body-only): finite, decreasing per-phase
-                losses, and K1 launched once per local_a step;
-  5. reference  a small solve on the card agrees with the same solve
-                on the CPU (the plain versions).
+  4. K2         the kernel held bit-exactly against its plain version
+                (dist, idx, dx; dy within the bound of a reordered f32
+                sum) at the global solve's shape, the standard problem's
+                initial contact vertices [900, 813, 3] against the
+                100,489-point scene, and on sizes that fill no tile,
+                duplicated scene points, far queries and queries equal
+                to scene points; kernel, plain, library
+                (torch.cdist + min over 8,192-query chunks) times;
+  5. local      the full-size standard local-mode clip solve (T=900,
+                V=10,475, 100,489 scene points, compact 192, skate 1024
+                body-only): finite, decreasing per-phase losses; K1
+                launched once per local_a step, K2 never;
+  6. global     the full-size global solve with brute-force contact NN
+                (nn_impl='brute'): K2 launched once per global_a step,
+                K1 never; then with the grid: K1 once per global_a step;
+  7. dct        the full-size dct solve with the grid (9,500 dct_a
+                steps + 500 dct_b): K1 once per dct_b step, K2 never;
+  8. reference  small solves on the card agree with the same solves on
+                the CPU (the plain versions): local/grid, global/brute
+                and dct/grid;
+  9. CLI        ``python -m fpv4d_torch.cli.globalopt`` in a subprocess,
+                global mode with --nn-impl brute, on a fixture written
+                from a seed: exits 0 and writes pkls with scale and
+                camera_ext.
+Every count is set to 0 just before its path runs and read just after.
 The second-to-last lines are a JSON object of kernel results and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when no CUDA device is available.
 """
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+
+ROOT = Path(__file__).resolve().parent
 
 
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -54,15 +79,24 @@ _HBM_BPS = 3.35e12
 _F32_FLOPS = 67e12
 
 
+def _bound_ms(nbytes: float, ops: float):
+    t_bytes, t_ops = nbytes / _HBM_BPS * 1e3, ops / _F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def _k1_bound_ms(T: int, N: int, P: int):
     """Least time for K1's work: each input read once, each output
     written once, and 8 f32 operations per (query, candidate) pair."""
     nbytes = (T * N * 3 * 4 + T * P * 3 * 4 + T * P      # q, cand, valid
               + T * N * 4 + T * N * 4 + T * N * 3 * 4)   # dist, slot, near
-    ops = 8.0 * T * N * P
-    t_bytes, t_ops = nbytes / _HBM_BPS * 1e3, ops / _F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return _bound_ms(nbytes, 8.0 * T * N * P)
+
+
+def _k2_bound_ms(Q: int, M: int):
+    """Least time for K2's work, counted as for K1: x and y read once,
+    dist and idx written once, 8 f32 operations per (query, point)."""
+    return _bound_ms(Q * 3 * 4 + M * 3 * 4 + Q * 4 + Q * 4, 8.0 * Q * M)
 
 
 def _check_k1(C, q, cand, valid, label):
@@ -90,12 +124,161 @@ def _check_k1(C, q, cand, valid, label):
     return err
 
 
+def _check_k2(K, x, y, label):
+    """Kernel vs plain version on the same inputs: dist, idx and dx must
+    be exactly equal. dy is an index_add_ whose f32 atomics add in a
+    different order on every run, so it is held to the bound of a
+    reordered sum: |dy_k - dy_p| <= 2 (n - 1) 2^-24 sum|terms| per row of
+    n terms. Returns the max abs error of dist."""
+    d_k, i_k = K.nn_distance_cuda(x, y)
+    d_p, i_p = K.nn_distance_plain(x, y)
+    torch.cuda.synchronize()
+    ok = torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    err = float((d_k - d_p).abs().max())
+    g = torch.randn(d_k.shape, device=x.device,
+                    generator=torch.Generator(device=x.device).manual_seed(1))
+    grads = []
+    for fn in (K.nn_distance, K.nn_distance_ref):
+        xg = x.detach().clone().requires_grad_(True)
+        yg = y.detach().clone().requires_grad_(True)
+        (fn(xg, yg)[0] * g).sum().backward()
+        grads.append((xg.grad, yg.grad))
+    (dx_k, dy_k), (dx_p, dy_p) = grads
+    ok = ok and torch.equal(dx_k, dx_p)
+    n = torch.bincount(i_p.reshape(-1).long(), minlength=y.shape[0])
+    abs_sum = K.scatter_to_cloud(y, i_p, dx_p.abs())
+    bound = 2.0 * (n - 1).clamp(min=0)[:, None] * 2.0 ** -24 * abs_sum
+    dy_err = float((dy_k - dy_p).abs().max())
+    ok = ok and bool(((dy_k - dy_p).abs() <= bound).all())
+    print(f"[K2] {label}: x {tuple(x.shape)} y {tuple(y.shape)} "
+          f"exact={ok} max_abs_err={err} dy_max_abs_diff={dy_err}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"K2 disagrees with its plain version: {label}")
+    return err
+
+
+def _reset_counts(C, K):
+    torch.cuda.synchronize()
+    C.launches = 0
+    K.launches = 0
+
+
+def _run_fit(solver, prob, mode, C, K, expect, label):
+    """Drive fit(mode) with both counts at 0; check finite, decreasing
+    per-phase losses and the launches of each kernel. Returns
+    (K1 launches, K2 launches, fit seconds)."""
+    _reset_counts(C, K)
+    t0 = time.perf_counter()
+    final, hist = solver.fit(prob.body, prob.cam, mode=mode)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    got = (C.launches, K.launches)
+    for k, v in hist.items():
+        print(f"[{label}] {k}: {len(v)} steps, loss {v[0]:.6f} -> "
+              f"{v[-1]:.6f}, {solver.phase_seconds[k]:.3f} s", flush=True)
+        if not np.all(np.isfinite(v)):
+            raise AssertionError(f"{label} {k}: non-finite loss")
+        if not v[-1] < v[0]:
+            raise AssertionError(f"{label} {k}: loss did not decrease")
+    others = {k: round(v, 3) for k, v in solver.phase_seconds.items()
+              if k not in hist}
+    print(f"[{label}] other stages (s): {others}; fit total {fit_s:.3f} s; "
+          f"K1 launches {got[0]}, K2 launches {got[1]} (expected "
+          f"{expect[0]}, {expect[1]})", flush=True)
+    if got != expect:
+        raise AssertionError(f"{label}: launches {got}, expected {expect}")
+    T = prob.body.shape[0]
+    body, scale, cam = solver.result_params(final)
+    if body.shape != (T, 75) or cam.shape != (T, 4, 4) or not (
+            np.all(np.isfinite(body)) and np.isfinite(scale)
+            and np.all(np.isfinite(cam))):
+        raise AssertionError(f"{label}: final parameters not finite / "
+                             "wrong shape")
+    return got[0], got[1], fit_s
+
+
+def _card_vs_cpu(standard_problem, dev, mode, nn_impl):
+    """A small solve on the card against the same solve on the CPU. The
+    first loss is taken at the shared initial state: 1e-5 relative (f32
+    summation order); later losses 2e-2, because the L1 smoothness terms
+    turn last-bit differences of near-zero second differences into
+    +-lr Adam steps."""
+    small = dict(T=24, num_verts=1024, scene_pts=2500, num_iter=20,
+                 num_iter_dct=40, nn_impl=nn_impl)
+    h_gpu = standard_problem(device=dev, **small)
+    h_cpu = standard_problem(device="cpu", **small)
+    _, hg = h_gpu.solver.fit(h_gpu.body, h_gpu.cam, mode=mode)
+    _, hc = h_cpu.solver.fit(h_cpu.body, h_cpu.cam, mode=mode)
+    k0 = next(iter(hc))
+    first = abs(hg[k0][0] - hc[k0][0]) / abs(hc[k0][0])
+    print(f"[reference] {mode}/{nn_impl} {k0} first loss rel diff cuda vs "
+          f"cpu {first:.3e}")
+    if not first <= 1e-5:
+        raise AssertionError(f"{mode}/{nn_impl}: cuda and cpu first "
+                             "losses disagree")
+    for k in hc:
+        rel = float(np.max(np.abs(hg[k] - hc[k]) / np.abs(hc[k])))
+        print(f"[reference] {mode}/{nn_impl} {k}: max rel diff cuda vs "
+              f"cpu {rel:.3e}", flush=True)
+        if not (np.all(np.isfinite(hg[k])) and rel < 2e-2):
+            raise AssertionError(f"{mode}/{nn_impl} {k}: cuda and cpu "
+                                 "solves disagree")
+
+
+def _cli_on_card(tmp: Path):
+    """The globalopt CLI in a subprocess on a seeded fixture: 6 frames
+    of body pkls, a 2,500-point scene.ply and a camerapose.txt."""
+    from fpv4d_torch.io import body_pkl
+    from fpv4d_torch.io.ply import write_ply
+    rng = np.random.RandomState(0)
+    T = 6
+    body_pkl.save_clip(str(tmp / "body_gen"),
+                       (rng.randn(T, 75) * 0.1).astype(np.float32))
+    g = np.linspace(-3, 3, 50)
+    xs, zs = np.meshgrid(g, g)
+    write_ply(str(tmp / "scene.ply"), np.stack(
+        [xs.ravel(), -1.0 + 0.03 * rng.randn(xs.size), zs.ravel()],
+        1).astype(np.float32))
+    with open(tmp / "camerapose.txt", "w") as f:
+        for t in range(T):
+            f.write(f"{t:06d}.jpg 1 0 0 0 0.1 0.2 {0.3 + 0.1 * t}\n")
+    cmd = [sys.executable, "-m", "fpv4d_torch.cli.globalopt",
+           str(tmp / "body_gen"), str(tmp / "fit"), "global",
+           "--scene", str(tmp / "scene.ply"),
+           "--camera", str(tmp / "camerapose.txt"), "--iters", "10",
+           "--model", "NONE", "--vposer", "NONE", "--nn-impl", "brute"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    for line in (res.stdout + res.stderr).splitlines()[-8:]:
+        print(f"[cli] | {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"globalopt exited {res.returncode}")
+    pkls = sorted((tmp / "fit").glob("*.pkl"))
+    frames = [body_pkl.load_frame(str(p)) for p in pkls]
+    if len(frames) != T or not all(
+            "scale" in d and "camera_ext" in d
+            and np.isfinite(d["scale"]) and np.all(np.isfinite(
+                d["camera_ext"])) for d in frames):
+        raise AssertionError("globalopt wrote no complete pkls")
+    print(f"[cli] globalopt global --nn-impl brute exit 0 in {secs:.2f} s; "
+          f"{len(pkls)} pkls with scale {float(frames[0]['scale']):.6f}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from fpv4d_torch.ops import cand_cuda as C
+    from fpv4d_torch.ops import chamfer_cuda as K
+    from fpv4d_torch.ops import cuda_build
     from fpv4d_torch.ops import nn as NN
+    from fpv4d_torch.solve.clip_solve import forward_world
     from fpv4d_torch.utils.bench_problem import standard_problem
 
     dev = torch.device("cuda")
@@ -107,12 +290,17 @@ def main() -> int:
     print(f"[device] {name}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # 2. build
-    secs = C.build()
-    print(f"[build] K1 built in {secs:.2f} s", flush=True)
-    for line in C.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    # 2. build: one nvcc per source, started together
+    t0 = time.perf_counter()
+    logs = cuda_build.compile_sources([C.SRC, K.SRC])
+    C.build()
+    K.build()
+    print(f"[build] K1 and K2 built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for src, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {src}: {line.strip()}")
 
     # the standard problem at full size
     t0 = time.perf_counter()
@@ -126,7 +314,6 @@ def main() -> int:
     # 3. K1 against its plain version on the main path's tables
     state, _, _ = solver.init_state(prob.body, prob.cam)
     with torch.no_grad():
-        from fpv4d_torch.solve.clip_solve import forward_world
         q, _, _ = forward_world(solver.ctx, state,
                                 vertex_subset=solver.contact_vids,
                                 prune=solver._contact_prune,
@@ -163,63 +350,91 @@ def main() -> int:
     del fc512, fc192, cand_d, valid_e
     torch.cuda.empty_cache()
 
-    # 4. the main path, counted
-    C.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    final, hist = solver.fit(prob.body, prob.cam, mode="local")
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = C.launches
-    n_a = int(solver.config.num_iter * solver.config.stage_split)
-    for k, v in hist.items():
-        print(f"[main] {k}: {len(v)} steps, loss {v[0]:.6f} -> "
-              f"{v[-1]:.6f}, {solver.phase_seconds[k]:.3f} s", flush=True)
-        if not np.all(np.isfinite(v)):
-            raise AssertionError(f"{k}: non-finite loss")
-        if not v[-1] < v[0]:
-            raise AssertionError(f"{k}: loss did not decrease")
-    sec = solver.phase_seconds
-    print(f"[main] init {sec['init']:.3f} s; detect_contact "
-          f"{sec['detect_contact']:.3f} s; fit total {fit_s:.3f} s; K1 "
-          f"launches {launches} (local_a steps {n_a})", flush=True)
-    if launches != n_a:
-        raise AssertionError(f"K1 launched {launches} times, expected {n_a}")
-    body, scale, cam = solver.result_params(final)
-    if body.shape != (T, 75) or cam.shape != (T, 4, 4) or not (
-            np.all(np.isfinite(body)) and np.isfinite(scale)
-            and np.all(np.isfinite(cam))):
-        raise AssertionError("final parameters not finite / wrong shape")
-    print(f"[main] final scale {scale:.6f}", flush=True)
+    # 4. K2 against its plain version at the global solve's shape
+    scene = solver.scene
+    k2_err = _check_k2(K, q, scene, "global [900,813] x scene")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x_odd = q[:7, :111].contiguous()                       # 777 queries
+    _check_k2(K, x_odd, scene[:100_001].contiguous(),
+              "unaligned Q=777, M=100001")
+    dup = torch.cat([scene[:30_000], scene[:30_000], scene[:5_001]])
+    _check_k2(K, x_odd, dup, "duplicated scene points")
+    _check_k2(K, x_odd * 40.0 + 100.0, scene, "far queries")
+    x_eq = x_odd.clone()
+    x_eq[0, :50] = scene[1000:1050]
+    _check_k2(K, x_eq, scene, "queries equal to scene points")
+    d_eq, i_eq = K.nn_distance_cuda(x_eq, scene)
+    if not (bool((d_eq[0, :50] == 0).all()) and torch.equal(
+            i_eq[0, :50].long(), torch.arange(1000, 1050, device=dev))):
+        raise AssertionError("a query equal to a scene point must find it")
+    x_rand = torch.rand((3, 1000, 3), device=dev, generator=gen) * 10 - 5
+    _check_k2(K, x_rand, scene, "random queries over the scene box")
 
-    # 5. a small solve on the card agrees with the same solve on the CPU
-    small = dict(T=24, num_verts=1024, scene_pts=2500, num_iter=20)
-    h_gpu = standard_problem(device=dev, **small)
-    h_cpu = standard_problem(device="cpu", **small)
-    _, hg = h_gpu.solver.fit(h_gpu.body, h_gpu.cam)
-    _, hc = h_cpu.solver.fit(h_cpu.body, h_cpu.cam)
-    # the first loss is taken at the shared initial state: 1e-5 relative
-    # (f32 summation order); later losses 2e-2, because the L1
-    # smoothness terms turn last-bit differences of near-zero second
-    # differences into +-lr Adam steps
-    first = abs(hg["local_a"][0] - hc["local_a"][0]) / hc["local_a"][0]
-    print(f"[reference] local_a first loss rel diff cuda vs cpu {first:.3e}")
-    if not first <= 1e-5:
-        raise AssertionError("cuda and cpu first losses disagree")
-    for k in hc:
-        rel = float(np.max(np.abs(hg[k] - hc[k]) / np.abs(hc[k])))
-        print(f"[reference] {k}: max rel diff cuda vs cpu {rel:.3e}")
-        if not (np.all(np.isfinite(hg[k])) and rel < 2e-2):
-            raise AssertionError(f"{k}: cuda and cpu solves disagree")
+    Q, M = q.numel() // 3, scene.shape[0]
+    k2_ms = _median_ms(lambda: K.nn_distance_cuda(q, scene), reps=10)
+    k2_plain_ms = _median_ms(lambda: K.nn_distance_plain(q, scene), reps=3,
+                             warmup=1)
+    qf = q.reshape(-1, 3)
+
+    def cdist_min():
+        for s in range(0, Q, 8192):
+            torch.cdist(qf[s:s + 8192], scene).min(-1)
+
+    k2_lib_ms = _median_ms(cdist_min, reps=3, warmup=1)
+    k2_bound, k2_bound_by = _k2_bound_ms(Q, M)
+    print(f"[K2] Q={Q} M={M}: kernel {k2_ms:.4f} ms, plain "
+          f"{k2_plain_ms:.4f} ms, cdist+min (8192-query chunks) "
+          f"{k2_lib_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_bound_by})",
+          flush=True)
+    del q, x_odd, dup, x_eq, x_rand
+    torch.cuda.empty_cache()
+
+    cfg = solver.config
+    n_a = int(cfg.num_iter * cfg.stage_split)
+    n_dct_b = cfg.num_iter_dct - int(cfg.num_iter_dct * cfg.dct_split)
+
+    # 5. the local path (the main path of the first slice)
+    k1_launches, _, _ = _run_fit(solver, prob, "local", C, K, (n_a, 0),
+                                 "local")
+
+    # 6. global: brute-force contact NN (K2), then the grid (K1)
+    t0 = time.perf_counter()
+    prob_b = standard_problem(device=dev, nn_impl="brute")
+    print(f"[setup] brute-force standard problem in "
+          f"{time.perf_counter() - t0:.2f} s (no voxel grid: "
+          f"{prob_b.solver.grid is None})", flush=True)
+    _, k2_launches, _ = _run_fit(prob_b.solver, prob_b, "global", C, K,
+                                 (0, n_a), "global/brute")
+    del prob_b
+    torch.cuda.empty_cache()
+    _run_fit(solver, prob, "global", C, K, (n_a, 0), "global/grid")
+
+    # 7. dct with the grid, at full length
+    _run_fit(solver, prob, "dct", C, K, (n_dct_b, 0), "dct/grid")
+
+    # 8. small solves on the card agree with the same solves on the CPU
+    for mode, nn_impl in (("local", "grid"), ("global", "brute"),
+                          ("dct", "grid")):
+        _card_vs_cpu(standard_problem, dev, mode, nn_impl)
+
+    # 9. the CLI on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        _cli_on_card(Path(tmp))
 
     ms, plain_ms, lib_ms, bound_ms, bound_by = timings[192]
-    print(json.dumps({"kernels": [{
-        "name": "cand_nn", "route": "cuda",
-        "source": "fpv4d_torch/csrc/cand_nn.cu",
-        "replaces": "fpv4d/ops/cand_pallas.py:160",
-        "launches": launches, "max_abs_err": err192, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms}]}))
+    print(json.dumps({"kernels": [
+        {"name": "cand_nn", "route": "cuda",
+         "source": "fpv4d_torch/csrc/cand_nn.cu",
+         "replaces": "fpv4d/ops/cand_pallas.py:160",
+         "launches": k1_launches, "max_abs_err": err192, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": lib_ms},
+        {"name": "chamfer_nn", "route": "cuda",
+         "source": "fpv4d_torch/csrc/chamfer_nn.cu",
+         "replaces": "fpv4d/ops/chamfer_pallas.py:55",
+         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "bound_by": k2_bound_by, "library_ms": k2_lib_ms}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,7 +1,10 @@
-"""Homogeneous transforms (port of fpv4d/core/transforms.py:14-51)."""
+"""Homogeneous transforms and camera-pose math (port of
+fpv4d/core/transforms.py)."""
 from __future__ import annotations
 
 import torch
+
+from fpv4d_torch.core.rotations import quat_to_matrot
 
 
 def to_homo(points: torch.Tensor) -> torch.Tensor:
@@ -34,3 +37,26 @@ def body2world(camera_ext: torch.Tensor, camera_transl: torch.Tensor,
     camera_ext [T,4,4], camera_transl [T,3], scale scalar or [T,1]."""
     return torch.matmul(camera_ext,
                         make_translation_mat(camera_transl * scale))
+
+
+def _rigid(Rt: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotation and [..., 3] translation of the inverse ->
+    [..., 4, 4] (R^T | -R^T t)."""
+    ti = -torch.matmul(Rt, t[..., None])[..., 0]
+    out = torch.eye(4, dtype=Rt.dtype, device=Rt.device).expand(
+        Rt.shape[:-2] + (4, 4)).clone()
+    out[..., :3, :3] = Rt
+    out[..., :3, 3] = ti
+    return out
+
+
+def invert_rigid(mat: torch.Tensor) -> torch.Tensor:
+    """Invert [..., 4, 4] rigid transforms analytically (R^T | -R^T t)."""
+    return _rigid(mat[..., :3, :3].transpose(-1, -2), mat[..., :3, 3])
+
+
+def colmap_pose_to_world_from_cam(qvec: torch.Tensor, tvec: torch.Tensor
+                                  ) -> torch.Tensor:
+    """COLMAP (qw qx qy qz, t) world-to-camera -> [..., 4, 4]
+    world-from-camera, inverted analytically."""
+    return _rigid(quat_to_matrot(qvec).transpose(-1, -2), tvec)

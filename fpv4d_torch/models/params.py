@@ -10,8 +10,9 @@
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 SLICES = {
@@ -38,3 +39,32 @@ VPOSER_SLICE_6D = (19, 51)
 def split_6d(x: torch.Tensor) -> Dict[str, torch.Tensor]:
     """[..., 78] -> dict of named slices (views) in the 6D layout."""
     return {k: x[..., a:b] for k, (a, b) in SLICES_6D.items()}
+
+
+def from_pkl_dict(param: Dict[str, np.ndarray],
+                  with_camera: bool = True) -> np.ndarray:
+    """SMPLify-X pkl dict -> [1, 75] (or [1, 72] without the camera)."""
+    keys = ["transl", "global_orient", "betas", "body_pose",
+            "left_hand_pose", "right_hand_pose"]
+    if with_camera:
+        keys.append("camera_translation")
+    return np.concatenate([np.asarray(param[k], dtype=np.float32)
+                           .reshape(1, -1) for k in keys], axis=-1)
+
+
+def encapsulate_frames(x: np.ndarray, scale: Optional[float] = None,
+                       camera_ext: Optional[np.ndarray] = None
+                       ) -> List[Dict[str, np.ndarray]]:
+    """[T, 75] -> T per-frame dicts for pkl output, each slot [1, k];
+    with scale/camera_ext given, each dict also carries the scalar
+    'scale' and its frame's [4, 4] 'camera_ext'."""
+    x = np.asarray(x)
+    out = []
+    for t in range(x.shape[0]):
+        d = {k: x[t:t + 1, a:b].copy() for k, (a, b) in SLICES.items()}
+        if scale is not None:
+            d["scale"] = np.float32(scale)
+        if camera_ext is not None:
+            d["camera_ext"] = np.asarray(camera_ext[t], dtype=np.float32)
+        out.append(d)
+    return out

@@ -18,24 +18,20 @@ Its distance is written with __fmul_rn/__fadd_rn so nvcc cannot fuse
 it into FMAs: it is then bit-identical to ``cand_nn_plain`` on the card,
 whose elementwise ops run as separate kernels.
 
-The kernel is built with nvcc at first use (``build()``) from the
-source in the repository into ``fpv4d_torch/_build/`` (git-ignored) as
-a shared library with a plain C interface, loaded with ctypes. Only the
-function that launches it needs the CUDA toolkit; importing this module
-does not.
+The kernel is built with nvcc at first use (``build()``, see
+ops/cuda_build.py) from the source in the repository into
+``fpv4d_torch/_build/`` (git-ignored) as a shared library with a plain C
+interface, loaded with ctypes. Only the function that launches it needs
+the CUDA toolkit; importing this module does not.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import time
-from pathlib import Path
 from typing import Tuple
 
 import torch
+
+from fpv4d_torch.ops import cuda_build
 
 BIG = 1e4
 
@@ -43,49 +39,21 @@ BIG = 1e4
 # run sets it to 0 and reads it back to show the path used the kernel)
 launches = 0
 
-_PKG = Path(__file__).resolve().parents[1]
-_SRC = _PKG / "csrc" / "cand_nn.cu"
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v")
-_lib = None
+SRC = cuda_build.CSRC / "cand_nn.cu"
+_launch = None          # the kernel's C entry point, once built
 build_log = ""
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built with "
-                       "the CUDA toolkit's nvcc")
 
 
 def build() -> float:
     """Compile (if not already built for this source) and load the
-    kernel library; returns the seconds it took. The library's name
-    carries a hash of the source, so an edited source rebuilds."""
-    global _lib, build_log
-    if _lib is not None:
+    kernel; returns the seconds it took."""
+    global _launch, build_log
+    if _launch is not None:
         return 0.0
     t0 = time.perf_counter()
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    so = _BUILD_DIR / f"libcand_nn_{tag}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        res = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                              str(_SRC)], capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.cand_nn_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _lib = lib
+    ptr, i32 = cuda_build.POINTER, cuda_build.INT
+    _launch, build_log = cuda_build.load_function(
+        SRC, "cand_nn_forward", [ptr] * 6 + [i32] * 3 + [ptr])
     return time.perf_counter() - t0
 
 
@@ -146,7 +114,7 @@ def cand_nn_cuda(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor
     dist = torch.empty((T, N), dtype=torch.float32, device=q.device)
     slot = torch.empty((T, N), dtype=torch.int32, device=q.device)
     nearest = torch.empty((T, N, 3), dtype=torch.float32, device=q.device)
-    err = _lib.cand_nn_forward(
+    err = _launch(
         q.data_ptr(), cand.data_ptr(), valid.data_ptr(), dist.data_ptr(),
         slot.data_ptr(), nearest.data_ptr(), T, N, P,
         torch.cuda.current_stream(q.device).cuda_stream)

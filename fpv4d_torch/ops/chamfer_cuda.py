@@ -1,0 +1,196 @@
+"""Exact brute-force nearest neighbour: hand-written CUDA kernel K2 and
+its plain PyTorch version.
+
+Replaces the TPU kernel ``_nn_kernel`` of fpv4d/ops/chamfer_pallas.py
+(launched from ``_nn_forward``, public entries ``nn_distance`` and
+``chamfer``): for each query x[..., :] the nearest of M cloud points y,
+with ties to the smallest index. ``nn_distance`` returns the squared
+distance and that index and is differentiable in x and y, with the
+reference's VJP: dx = g * 2 (x - y[idx]), and -dx scatter-added into dy
+(``index_add_``, computed only when y needs a gradient).
+
+The TPU kernel selects with a folded Gram form (|y|^2 - 2 x.y in bf16x3
+emulation) because Mosaic ignores f32 matmul precision; the kernel here
+(csrc/chamfer_nn.cu) computes each pair's difference form
+(dx*dx + dy*dy) + dz*dz in f32 without FMA contraction, so it is
+bit-identical to ``nn_distance_plain`` on the card. Its winners can
+differ from the reference's among near-ties (the distance at the winner
+is exact in both).
+
+The kernel is built with nvcc at first use (``build()``, see
+ops/cuda_build.py); importing this module needs no CUDA toolkit.
+"""
+from __future__ import annotations
+
+import time
+from typing import Tuple
+
+import torch
+
+from fpv4d_torch.ops import cuda_build
+
+# kernel launches since the count was last reset (a plain integer: a
+# run sets it to 0 and reads it back to show the path used the kernel)
+launches = 0
+
+SRC = cuda_build.CSRC / "chamfer_nn.cu"
+_launch = None          # the kernel's C entry point, once built
+build_log = ""
+
+# the plain version's [chunk, M] intermediates hold at most this many
+# elements each (256 MB in f32)
+_PLAIN_ELEMS = 1 << 26
+
+
+def build() -> float:
+    """Compile (if not already built for this source) and load the
+    kernel; returns the seconds it took."""
+    global _launch, build_log
+    if _launch is not None:
+        return 0.0
+    t0 = time.perf_counter()
+    ptr, i32 = cuda_build.POINTER, cuda_build.INT
+    _launch, build_log = cuda_build.load_function(
+        SRC, "chamfer_nn_forward", [ptr] * 4 + [i32] * 2 + [ptr])
+    return time.perf_counter() - t0
+
+
+def _check_cloud(y: torch.Tensor):
+    if y.ndim != 2 or y.shape[1] != 3:
+        raise ValueError(f"the cloud must be [M, 3], got {tuple(y.shape)}")
+    if y.shape[0] == 0:
+        raise ValueError("nearest neighbour in an empty cloud (M = 0)")
+
+
+def dist_sq_qm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Squared distances [Q, M] of x [Q, 3] to y [M, 3], summed
+    (dx*dx + dy*dy) + dz*dz, each op unfused (the kernel's order)."""
+    dx = x[:, None, 0] - y[None, :, 0]
+    dy = x[:, None, 1] - y[None, :, 1]
+    dz = x[:, None, 2] - y[None, :, 2]
+    return (dx * dx + dy * dy) + dz * dz
+
+
+def nn_distance_plain(x: torch.Tensor, y: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2: x [..., 3], y [M, 3] -> (dist [...]
+    f32, idx [...] int32), in query chunks whose [chunk, M] intermediates
+    stay under a fixed size; torch.min keeps the smallest index among
+    ties."""
+    _check_cloud(y)
+    batch_shape = x.shape[:-1]
+    xf = x.reshape(-1, 3)
+    chunk = max(1, _PLAIN_ELEMS // y.shape[0])
+    ds, ids = [], []
+    for s in range(0, xf.shape[0], chunk):
+        d, i = torch.min(dist_sq_qm(xf[s:s + chunk], y), dim=1)
+        ds.append(d)
+        ids.append(i.to(torch.int32))
+    if not ds:
+        return (x.new_empty(batch_shape),
+                torch.empty(batch_shape, dtype=torch.int32,
+                            device=x.device))
+    return (torch.cat(ds).reshape(batch_shape),
+            torch.cat(ids).reshape(batch_shape))
+
+
+def nn_distance_cuda(x: torch.Tensor, y: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on the card; same contract as nn_distance_plain. Raises on
+    anything the kernel does not take."""
+    global launches
+    if not (x.is_cuda and y.is_cuda):
+        raise ValueError("nn_distance_cuda takes CUDA tensors")
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise ValueError("nn_distance_cuda takes f32 tensors")
+    if x.device != y.device:
+        raise ValueError(f"x on {x.device}, y on {y.device}")
+    if x.shape[-1] != 3:
+        raise ValueError(f"queries must be [..., 3], got {tuple(x.shape)}")
+    _check_cloud(y)
+    batch_shape = x.shape[:-1]
+    Q, M = x.numel() // 3, y.shape[0]
+    if 3 * Q >= 2 ** 31 or 3 * M >= 2 ** 31:
+        raise ValueError("nn_distance_cuda: tensors exceed int32 indexing")
+    dist = torch.empty(batch_shape, dtype=torch.float32, device=x.device)
+    idx = torch.empty(batch_shape, dtype=torch.int32, device=x.device)
+    if Q == 0:
+        return dist, idx
+    build()
+    x, y = x.contiguous(), y.contiguous()
+    err = _launch(
+        x.data_ptr(), y.data_ptr(), dist.data_ptr(), idx.data_ptr(), Q, M,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"chamfer_nn kernel launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    return dist, idx
+
+
+def nn_index(x: torch.Tensor, y: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch on the tensors' device: the plain version for CPU
+    tensors, the kernel for CUDA tensors (never a fallback)."""
+    if x.is_cuda:
+        return nn_distance_cuda(x, y)
+    return nn_distance_plain(x, y)
+
+
+def scatter_to_cloud(y: torch.Tensor, idx: torch.Tensor,
+                     d_near: torch.Tensor) -> torch.Tensor:
+    """dy: d_near [..., 3] summed onto the cloud rows idx [...]."""
+    return torch.zeros_like(y).index_add_(0, idx.reshape(-1).long(),
+                                          d_near.reshape(-1, 3))
+
+
+class _NNDistance(torch.autograd.Function):
+    """(dist, idx) with the reference's VJP (chamfer_pallas._nn_bwd)."""
+
+    @staticmethod
+    def forward(ctx, x, y, forward_fn):
+        dist, idx = forward_fn(x, y)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(x, y, idx)
+        return dist, idx
+
+    @staticmethod
+    def backward(ctx, g_dist, _g_idx):
+        x, y, idx = ctx.saved_tensors
+        nearest = y[idx.long()]
+        dx = g_dist[..., None] * (2.0 * (x - nearest))
+        dy = (scatter_to_cloud(y, idx, -dx) if ctx.needs_input_grad[1]
+              else None)
+        return dx, dy, None
+
+
+def nn_distance(x: torch.Tensor, y: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Squared distance from each x [..., 3] to its nearest y [M, 3]
+    point -> (dist [...] f32, idx [...] int32), differentiable in x and
+    y: the kernel for CUDA tensors, the plain version for CPU tensors."""
+    return _NNDistance.apply(x, y, nn_index)
+
+
+def nn_distance_ref(x: torch.Tensor, y: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """nn_distance through the plain version on any device (the
+    reference the kernel is held against)."""
+    return _NNDistance.apply(x, y, nn_distance_plain)
+
+
+def chamfer(x: torch.Tensor, y: torch.Tensor):
+    """Bidirectional chamfer, the distChamfer 4-tuple
+    (chamfer_pallas.chamfer): x [B, N, 3], y [B, M, 3] or a shared
+    [M, 3] -> (dist_x [B, N], dist_y [B, M], idx_x, idx_y)."""
+    if y.ndim == 2:
+        d_xy, i_xy = nn_distance(x, y)
+        back = [nn_distance(y, xb) for xb in x]
+    else:
+        fwd = [nn_distance(xb, yb) for xb, yb in zip(x, y)]
+        d_xy = torch.stack([d for d, _ in fwd])
+        i_xy = torch.stack([i for _, i in fwd])
+        back = [nn_distance(yb, xb) for xb, yb in zip(x, y)]
+    d_yx = torch.stack([d for d, _ in back])
+    i_yx = torch.stack([i for _, i in back])
+    return d_xy, d_yx, i_xy, i_yx

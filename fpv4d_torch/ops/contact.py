@@ -73,3 +73,16 @@ def synthetic_segments(num_verts: int, seed: int = 0,
         ids = rng.choice(num_verts, size=per_part, replace=False)
         out[part] = sorted(int(v) for v in ids)
     return out
+
+
+def contact_ids(segments_folder: str, parts: Sequence[str],
+                num_verts: int, seed: int = 0) -> np.ndarray:
+    """Vertex ids of the given parts; the synthetic registry when the
+    folder (or a part file) is missing."""
+    try:
+        vids, _ = load_contact_ids(segments_folder, parts)
+        return vids
+    except (FileNotFoundError, TypeError):
+        segs = synthetic_segments(num_verts, seed)
+        return np.concatenate([np.asarray(segs[p], np.int32)
+                               for p in parts])

@@ -1,0 +1,84 @@
+"""Build the hand-written CUDA kernels of ``fpv4d_torch/csrc/``.
+
+Each source is compiled by nvcc for ``sm_90a`` into a shared library
+with a plain C interface under ``fpv4d_torch/_build/`` (git-ignored),
+named after the source and a hash of its bytes, so an edited source
+rebuilds and an unchanged one is built once. ``compile_sources`` starts
+one nvcc per missing library, all together, and waits for them;
+``load_function`` compiles one source if needed, opens it with ctypes
+and declares its entry point. Nothing here runs at import: only a
+kernel's first launch (or an explicit build) needs the CUDA toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Callable, Dict, Sequence, Tuple
+
+# ctypes argument types of the kernels' C entry points
+POINTER = ctypes.c_void_p
+INT = ctypes.c_int
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                       "the CUDA toolkit's nvcc")
+
+
+def library_path(src: Path) -> Path:
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{src.stem}_{tag}.so"
+
+
+def compile_sources(srcs: Sequence[Path]) -> Dict[str, str]:
+    """Compile every source whose library is missing, one nvcc process
+    each, all started before any is waited for. Returns each compiled
+    source's compiler output (ptxas' register and spill lines) by file
+    name; raises if any compilation fails."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    running = []
+    for src in srcs:
+        so = library_path(src)
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((src, so, tmp, proc))
+    logs, failed = {}, []
+    for src, so, tmp, proc in running:
+        logs[src.name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{logs[src.name]}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def load_function(src: Path, name: str, argtypes: Sequence
+                  ) -> Tuple[Callable[..., int], str]:
+    """(C entry point `name` of src's library, declared with `argtypes`
+    and an int return; compiler output), compiling src first if its
+    library is missing (the output is "" when it was not)."""
+    log = compile_sources([src]).get(src.name, "")
+    fn = getattr(ctypes.CDLL(str(library_path(src))), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn, log

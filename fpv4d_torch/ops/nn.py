@@ -1,6 +1,7 @@
-"""Contact nearest-neighbour front end, main-path subset (port of
-fpv4d/ops/nn.py: VoxelGrid + the NumPy grid builder, grid_min_dist,
-FrameCands, frame_candidates, compact_candidates, nn_to_candidates).
+"""Contact nearest-neighbour front end (port of fpv4d/ops/nn.py:
+VoxelGrid + the NumPy grid builder, grid_min_dist, FrameCands,
+frame_candidates, compact_candidates, nn_to_candidates, and the exact
+brute-force nn_brute).
 
 The scene is static across the solve, so a voxel grid stores, per cell,
 the K scene points of the cell's 3x3x3 neighbourhood. Every
@@ -10,6 +11,9 @@ the P_out candidates most contended to be some query's NN
 (compact_candidates); every step then evaluates the contact distance
 against those per-frame tables (nn_to_candidates: the hand-written CUDA
 kernel of ops/cand_cuda.py on the card).
+
+Without a grid (``nn_impl='brute'``), nn_brute searches the whole scene
+every step: kernel K2 of ops/chamfer_cuda.py on the card.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from fpv4d_torch.ops import cand_cuda
+from fpv4d_torch.ops import cand_cuda, chamfer_cuda
 
 BIG = cand_cuda.BIG           # saturation distance^2 for empty neighbourhoods
 _FILL_CELL = 2 ** 30
@@ -125,13 +129,15 @@ def _cell_ids(grid: VoxelGrid, q: torch.Tensor) -> torch.Tensor:
 
 def grid_min_dist(grid: VoxelGrid, q: torch.Tensor) -> torch.Tensor:
     """Distance-only voxel NN: q [..., 3] -> dist_sq [...] (BIG where the
-    query's cell has no candidate). Plain autodiff."""
+    query's cell has no candidate). Plain autodiff; torch.amin splits the
+    gradient evenly among exactly tied candidates, as JAX's min does
+    (torch.min(dim) would send it all to one)."""
     flat = _cell_ids(grid, q)
     pts = grid.cand_pts[flat]                              # [..., K, 3]
     valid = grid.cand_idx[flat] >= 0
     d = torch.sum((q[..., None, :] - pts) ** 2, dim=-1)
     d = torch.where(valid, d, BIG)
-    return torch.clamp(torch.min(d, dim=-1).values, max=BIG)
+    return torch.clamp(torch.amin(d, dim=-1), max=BIG)
 
 
 def frame_candidates(grid: VoxelGrid, q: torch.Tensor,
@@ -193,3 +199,14 @@ def nn_to_candidates(q: torch.Tensor, cands: FrameCands) -> torch.Tensor:
     (BIG where a frame has no valid candidate), differentiable in q:
     the CUDA kernel on the card, its plain version on the CPU."""
     return cand_cuda.nn_to_candidates(q, cands.cand, cands.valid)
+
+
+def nn_brute(x: torch.Tensor, y: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Brute-force NN: x [..., 3], y [M, 3] -> (dist_sq [...], idx [...]
+    int32), K2 for CUDA tensors and its plain version for CPU tensors,
+    with the reference's VJP (dx = g * 2 (x - y[idx]), -dx added into
+    dy). The reference re-evaluates |x - y[idx]|^2 after its Gram-form
+    search (nn._exact_at); K2's distance already is that difference
+    form at the winner, in the same f32 order, so it is returned as is."""
+    return chamfer_cuda.nn_distance(x, y)

@@ -1,17 +1,28 @@
-"""Clip-level joint optimization, local mode (port of
-fpv4d/solve/clip_solve.py).
+"""Clip-level joint optimization (port of fpv4d/solve/clip_solve.py).
 
 Jointly optimizes, over a whole clip at once, the body parameter
 sequence [T, 78] (6D-rotation layout), a global metric scale, per-frame
 camera extrinsics [T, 4, 4] and DCT trajectory coefficients, with ONE
 Adam state across every phase (as the reference makes its optax state
-once per fit). Local mode runs four stages:
+once per fit). The three modes and their stages:
 
-  local_a     reconstruction + smoothness + contact (lazy candidates,
-              refreshed every ``contact_refresh_steps`` steps)
-  local_b     reconstruction + smoothness
-  detection   planted-foot weights from the voxel grid
-  skate       anti-foot-skate refinement of the body sequence
+  local   local_a   reconstruction + smoothness + contact
+          local_b   reconstruction + smoothness
+          detection planted-foot weights from the contact distance
+          skate     anti-foot-skate refinement of the body sequence
+  global  global_a  as local_a, with the global contact multiplier
+          global_b  reconstruction + smoothness + world joint smoothness
+  dct     dct_a     the DCT trajectory fit of c_dct alone, with the
+                    joints computed once (the body is frozen)
+          dct_b     DCT prior + reconstruction + contact
+
+The contact distance has three sources (``_nn``): with
+``nn_impl='grid'`` and ``contact_refresh_steps > 0``, per-frame
+candidate tables rebuilt every that-many steps (kernel K1,
+ops/cand_cuda.py); with 'grid' and ``contact_refresh_steps=0``, the
+exact per-step voxel query; with ``nn_impl='brute'``, the whole scene
+every step (kernel K2, ops/chamfer_cuda.py). With a scene SDF the
+contact phases add the collision term, linearized at each refresh.
 
 Differences of form from the reference, none of value:
   * phases are Python loops of eager steps, not one jitted lax.scan;
@@ -22,14 +33,10 @@ Differences of form from the reference, none of value:
   * PyTorch does no dead-code elimination, so each phase computes only
     the terms and the FK call its loss reads (the reference leaves that
     pruning to XLA).
-
-``global`` and ``dct`` mode, brute-force NN (``nn_impl`` other than
-'grid'), the exact per-step grid query (``contact_refresh_steps=0``),
-the scene-SDF collision term and checkpointing are not ported yet
-(ROADMAP.md, queue 1, item 9: slice 2).
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -43,15 +50,23 @@ from fpv4d_torch.models import vposer as VP
 from fpv4d_torch.models.smplx import SmplxModel
 from fpv4d_torch.ops import losses
 from fpv4d_torch.ops import nn as NN
+from fpv4d_torch.ops import sdf as SDF
+from fpv4d_torch.utils.checkpoint import save_solver_state
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, queue 1, item 9: slice 2)"
+NN_IMPLS = ("grid", "brute")
+MODES = ("local", "global", "dct")
+# refresh interval of the SDF linearization when contact_refresh_steps
+# is 0 (exact contact NN) but a scene SDF forces chunked phases
+DEFAULT_REFRESH_STEPS = 50
 
 
 class Ctx(NamedTuple):
-    """What the objective reads besides the state."""
+    """What forward_world reads besides the state. The contact sources
+    (scene, grid, candidate tables, SDF linearization) are not threaded
+    through it as the reference threads them through jit: the solver
+    holds the scene and grid, and the phases pass tables as arguments."""
     model: SmplxModel
     vposer: Dict[str, torch.Tensor]
-    grid: NN.VoxelGrid
 
 
 class ClipState(NamedTuple):
@@ -63,14 +78,15 @@ class ClipState(NamedTuple):
 
 
 class Terms(NamedTuple):
-    """All loss terms of the reference's cal_loss (collision is 0: the
-    scene-SDF term is not ported)."""
+    """All loss terms of the reference's cal_loss; collision is 0 unless
+    the solver was given a scene SDF."""
     rec: torch.Tensor
     vposer: torch.Tensor
     contact: torch.Tensor
     smooth: torch.Tensor
     world_smooth: torch.Tensor
     dct: torch.Tensor
+    collision: torch.Tensor
 
 
 def _mask(body=False, scale=False, camera=False, dct=False) -> ClipState:
@@ -150,29 +166,34 @@ def _as_f32(x, device) -> torch.Tensor:
 
 
 class ClipSolver:
-    """Owns the model, VPoser params and scene grid; exposes fit()."""
+    """Owns the model, VPoser params, scene (and its grid for
+    nn_impl='grid') and optional scene SDF; exposes fit().
+
+    nn_impl: 'grid' (voxel-grid contact NN, as the reference picks on
+    its accelerator) or 'brute' (exact search of the whole scene, the
+    reference's 'pallas'/'xla'). The grid is built only for 'grid'."""
 
     def __init__(self, model: SmplxModel, vposer_params: Dict,
                  scene_verts, contact_vids, contact_vids_left,
                  contact_vids_right, config: ClipConfig = ClipConfig(),
                  nn_impl: str = "grid", grid_h: float = 0.25,
                  grid_slots: int = 8, grid: Optional[NN.VoxelGrid] = None,
-                 device="cuda"):
-        if nn_impl != "grid":
-            raise NotImplementedError(f"nn_impl={nn_impl!r}: {_NOT_PORTED}")
-        if config.contact_refresh_steps <= 0:
-            raise NotImplementedError(
-                "contact_refresh_steps=0 (exact per-step grid query): "
-                + _NOT_PORTED)
+                 sdf: Optional[SDF.SdfGrid] = None, device="cuda"):
+        if nn_impl not in NN_IMPLS:
+            raise ValueError(f"nn_impl={nn_impl!r}: one of {NN_IMPLS}")
         self.device = torch.device(device)
         self.config = config
+        self.nn_impl = nn_impl
         self.model = model.to(self.device)
         self.vposer_params = {k: _as_f32(v, self.device)
                               for k, v in vposer_params.items()}
+        self.scene = _as_f32(scene_verts, self.device)
         self.contact_vids = np.asarray(contact_vids, np.int32)
         self.contact_vids_left = np.asarray(contact_vids_left, np.int32)
         self.contact_vids_right = np.asarray(contact_vids_right, np.int32)
-        if grid is None:
+        if nn_impl != "grid":
+            grid = None
+        elif grid is None:
             grid = NN.build_voxel_grid(
                 np.asarray(scene_verts, np.float32), h=grid_h,
                 slots_per_cell=grid_slots, device=self.device)
@@ -182,6 +203,7 @@ class ClipSolver:
                                 origin=grid.origin.to(self.device),
                                 dims=grid.dims, h=grid.h)
         self.grid = grid
+        self.sdf = None if sdf is None else sdf.to(self.device)
         self.phase_seconds: Dict[str, float] = {}
 
         # anti-skate vertex set: stratified sample + both feet
@@ -223,31 +245,55 @@ class ClipSolver:
 
     @property
     def ctx(self) -> Ctx:
-        return Ctx(model=self.model, vposer=self.vposer_params,
-                   grid=self.grid)
+        return Ctx(model=self.model, vposer=self.vposer_params)
+
+    # -- geometry ------------------------------------------------------------
+
+    def _nn(self, pts: torch.Tensor,
+            cands: Optional[NN.FrameCands] = None) -> torch.Tensor:
+        """[T, N, 3] -> squared NN distance [T, N] to the scene: against
+        per-frame candidate tables when given (K1), else the exact
+        per-step voxel query ('grid') or the whole scene ('brute', K2)."""
+        if cands is not None:
+            return NN.nn_to_candidates(pts, cands)
+        if self.nn_impl == "grid":
+            return NN.grid_min_dist(self.grid, pts)
+        return NN.nn_brute(pts, self.scene)[0]
+
+    def _collision(self, verts_w: torch.Tensor,
+                   sdf_lin: Optional[SDF.SdfLin]) -> torch.Tensor:
+        return self.config.weights.collision * SDF.collision_penalty(
+            verts_w, sdf_lin)
 
     # -- objectives ----------------------------------------------------------
 
     def terms(self, state: ClipState, target_6d: torch.Tensor,
-              frame_weights: torch.Tensor, cands: NN.FrameCands,
-              prune=None, merge_joints: bool = False) -> Terms:
-        """All cal_loss terms, with the contact term against `cands`.
-        The phases compute only the terms they read (phase_loss); this
-        full form serves inspection and the parity tests."""
+              frame_weights: torch.Tensor,
+              cands: Optional[NN.FrameCands] = None, prune=None,
+              merge_joints: bool = False,
+              sdf_lin: Optional[SDF.SdfLin] = None) -> Terms:
+        """All cal_loss terms, with the contact term against `cands`
+        (or the per-step source of _nn without them). The phases compute
+        only the terms they read (phase_loss); this full form serves
+        inspection and the parity tests."""
         w = self.config.weights
         verts_w, joints_w, aux = forward_world(
             self.ctx, state, vertex_subset=self.contact_vids, prune=prune,
             merge_joints=merge_joints)
+        collision = (self._collision(verts_w, sdf_lin)
+                     if sdf_lin is not None
+                     else torch.zeros((), device=self.device))
         return Terms(
             rec=w.rec * losses.rec_l1(target_6d, state.body_6d,
                                       frame_weights),
             vposer=w.vposer * losses.vposer_prior(aux["latent"]),
             contact=w.contact * losses.robust_contact(
-                NN.nn_to_candidates(verts_w, cands)),
+                self._nn(verts_w, cands)),
             smooth=losses.second_order_smoothness(state.body_6d),
             world_smooth=losses.first_order_smoothness(joints_w),
             dct=losses.dct_trajectory(joints_w, state.c_dct,
-                                      self.config.window))
+                                      self.config.window),
+            collision=collision)
 
     def terms2(self, state: ClipState, target_6d: torch.Tensor,
                frame_weights: torch.Tensor, weight_right: torch.Tensor
@@ -269,33 +315,76 @@ class ClipSolver:
         return rec, local_smooth, vert_smooth, skate
 
     def phase_loss(self, phase: str, state: ClipState, target_6d,
-                   frame_weights, cands: Optional[NN.FrameCands] = None
-                   ) -> torch.Tensor:
-        """Stage loss recipes, each computing only the terms it reads."""
+                   frame_weights, cands: Optional[NN.FrameCands] = None,
+                   sdf_lin: Optional[SDF.SdfLin] = None) -> torch.Tensor:
+        """Stage loss recipes (the reference's phase_loss), each
+        computing only the terms it reads. The collision term rides with
+        the contact term when a linearized SDF is given."""
         cfg = self.config
         w = cfg.weights
         rec = w.rec * losses.rec_l1(target_6d, state.body_6d, frame_weights)
         smooth = losses.second_order_smoothness(state.body_6d)
-        if phase == "local_a":
+        if phase == "local_b":
+            return rec + smooth * cfg.phase_b_smooth_mult
+        if phase == "global_b":
+            # joints only, from the merged body-subtree call; no contact
+            _, joints_w, _ = forward_world(
+                self.ctx, state, vertex_subset=self.contact_vids,
+                prune=self._contact_prune, merge_joints=True)
+            return (rec + losses.first_order_smoothness(joints_w)
+                    + smooth * cfg.phase_b_smooth_mult)
+        if phase == "dct_a":
+            # the generic form; fit() runs dct_a with the joints hoisted
+            _, joints_w, _ = forward_world(
+                self.ctx, state, vertex_subset=self.contact_vids,
+                prune=self._contact_prune)
+            return losses.dct_trajectory(joints_w, state.c_dct,
+                                         cfg.window) * cfg.dct_mult
+        if phase in ("local_a", "global_a"):
             # verts only: the body-subtree joints FK and the DCT term
             # are not read
             verts_w, _, _ = forward_world(
                 self.ctx, state, vertex_subset=self.contact_vids,
                 prune=self._contact_prune, with_joints=False)
+            mult = (cfg.local_contact_mult if phase == "local_a"
+                    else cfg.global_contact_mult)
             contact = w.contact * losses.robust_contact(
-                NN.nn_to_candidates(verts_w, cands))
-            return contact * cfg.local_contact_mult + smooth + rec
-        if phase == "local_b":
-            return rec + smooth * cfg.phase_b_smooth_mult
-        raise NotImplementedError(f"phase {phase!r}: {_NOT_PORTED}")
+                self._nn(verts_w, cands))
+            loss = contact * mult + smooth + rec
+        elif phase == "dct_b":
+            # verts and joints from one merged body-subtree call
+            verts_w, joints_w, _ = forward_world(
+                self.ctx, state, vertex_subset=self.contact_vids,
+                prune=self._contact_prune, merge_joints=True)
+            dct = losses.dct_trajectory(joints_w, state.c_dct, cfg.window)
+            contact = w.contact * losses.robust_contact(
+                self._nn(verts_w, cands))
+            loss = dct * 1e-4 + rec * 0.5 + contact * 0.1
+        else:
+            raise ValueError(f"unknown phase {phase!r}")
+        if sdf_lin is not None:
+            loss = loss + self._collision(verts_w, sdf_lin)
+        return loss
 
     @staticmethod
     def phase_mask(phase: str) -> ClipState:
         return {"local_a": _mask(body=True, scale=True),
                 "local_b": _mask(body=True, camera=True),
+                "global_a": _mask(body=True, scale=True),
+                "global_b": _mask(body=True, camera=True),
+                "dct_a": _mask(dct=True),
+                "dct_b": _mask(body=True, scale=True),
                 "skate": _mask(body=True)}[phase]
 
-    # -- contact tables --------------------------------------------------------
+    # -- contact tables and SDF linearization ---------------------------------
+
+    # contact phases eligible for the lazy-refresh tables
+    _CONTACT_PHASES = ("local_a", "global_a", "dct_b")
+
+    def _use_lazy_contact(self, phase: str) -> bool:
+        return (self.nn_impl == "grid"
+                and self.config.contact_refresh_steps > 0
+                and phase in self._CONTACT_PHASES)
 
     @torch.no_grad()
     def _refresh_cands(self, state: ClipState) -> NN.FrameCands:
@@ -312,18 +401,25 @@ class ClipSolver:
         return fc
 
     @torch.no_grad()
+    def _refresh_sdf(self, state: ClipState) -> SDF.SdfLin:
+        """Linearize the scene SDF at the current contact vertices."""
+        verts_w, _, _ = forward_world(
+            self.ctx, state, vertex_subset=self.contact_vids,
+            prune=self._contact_prune, with_joints=False)
+        return SDF.linearize(self.sdf, verts_w)
+
+    @torch.no_grad()
     def detect_contact(self, state: ClipState) -> torch.Tensor:
         """Per-frame planted-foot weight, left/(left+right), from the
-        mean grid NN distance of each foot's vertices."""
+        mean exact NN distance (voxel query or brute) of each foot's
+        vertices."""
         n_left = len(self.contact_vids_left)
         verts_w, _, _ = forward_world(self.ctx, state,
                                       vertex_subset=self._feet_vids,
                                       prune=self._feet_prune,
                                       with_joints=False)
-        d_l = torch.mean(NN.grid_min_dist(self.grid, verts_w[:, :n_left]),
-                         dim=1)
-        d_r = torch.mean(NN.grid_min_dist(self.grid, verts_w[:, n_left:]),
-                         dim=1)
+        d_l = torch.mean(self._nn(verts_w[:, :n_left]), dim=1)
+        d_r = torch.mean(self._nn(verts_w[:, n_left:]), dim=1)
         return losses.planted_foot_weight(d_l, d_r)
 
     # -- init ----------------------------------------------------------------
@@ -403,27 +499,54 @@ class ClipSolver:
 
     def _run_phase(self, state, opt, target_6d, frame_weights,
                    num_steps: int, phase: str,
-                   cands: Optional[NN.FrameCands] = None) -> torch.Tensor:
+                   cands: Optional[NN.FrameCands] = None,
+                   sdf_lin: Optional[SDF.SdfLin] = None) -> torch.Tensor:
+        if phase == "dct_a":
+            return self._run_dct_only_phase(state, opt, num_steps)
         return self._run_steps(
             state, opt, self.phase_mask(phase), num_steps,
             lambda st: self.phase_loss(phase, st, target_6d, frame_weights,
-                                       cands))
+                                       cands, sdf_lin))
+
+    def _run_dct_only_phase(self, state, opt, num_steps: int
+                            ) -> torch.Tensor:
+        """dct_a optimizes c_dct alone: the body is frozen, so the world
+        joints are computed once, without grad, and each step is the DCT
+        residual and its c_dct gradient (the other three leaves keep zero
+        gradients and move on their Adam moments)."""
+        cfg = self.config
+        with torch.no_grad():
+            _, joints_w, _ = forward_world(
+                self.ctx, state, vertex_subset=self.contact_vids,
+                prune=self._contact_prune)
+        return self._run_steps(
+            state, opt, self.phase_mask("dct_a"), num_steps,
+            lambda st: losses.dct_trajectory(joints_w, st.c_dct,
+                                             cfg.window) * cfg.dct_mult)
 
     def _run_phase_auto(self, state, opt, target_6d, frame_weights,
                         num_steps: int, phase: str) -> torch.Tensor:
-        """Contact phases run as chunks of contact_refresh_steps steps,
-        rebuilding the candidate tables before each chunk."""
-        if phase != "local_a":
+        """Contact phases with lazy tables run as chunks of
+        contact_refresh_steps steps, rebuilding the candidate tables (and
+        the SDF linearization when a scene SDF is given) before each
+        chunk. An SDF with contact_refresh_steps=0 refreshes its
+        linearization every DEFAULT_REFRESH_STEPS steps."""
+        lazy_contact = self._use_lazy_contact(phase)
+        lazy_sdf = self.sdf is not None and phase in self._CONTACT_PHASES
+        if not (lazy_contact or lazy_sdf):
             return self._run_phase(state, opt, target_6d, frame_weights,
                                    num_steps, phase)
-        chunk = self.config.contact_refresh_steps
+        chunk = max(1, self.config.contact_refresh_steps
+                    or DEFAULT_REFRESH_STEPS)
         hists = []
         left = num_steps
         while left > 0:
             k = min(chunk, left)
-            cands = self._refresh_cands(state)
+            cands = self._refresh_cands(state) if lazy_contact else None
+            lin = self._refresh_sdf(state) if lazy_sdf else None
             hists.append(self._run_phase(state, opt, target_6d,
-                                         frame_weights, k, phase, cands))
+                                         frame_weights, k, phase, cands,
+                                         lin))
             left -= k
         return torch.cat(hists)
 
@@ -441,15 +564,21 @@ class ClipSolver:
     # -- public API ------------------------------------------------------------
 
     def fit(self, body_75, camera_ext, mode: str = "local",
-            verbose: bool = False
+            verbose: bool = False, checkpoint_dir: Optional[str] = None
             ) -> Tuple[ClipState, Dict[str, np.ndarray]]:
-        """Run the staged solve. body_75 [T,75] packed SMPLify-X outputs,
-        camera_ext [T,4,4] world-from-camera init (numpy or tensors).
+        """Run the staged solve of `mode` ('local', 'global' or 'dct').
+        body_75 [T,75] packed SMPLify-X outputs, camera_ext [T,4,4]
+        world-from-camera init (numpy or tensors).
+
+        checkpoint_dir: if given, the state, the Adam state and the step
+        count are written there after every phase, as ``<phase>.pt``
+        (utils/checkpoint.py).
+
         Returns the final state and the per-step loss history of each
         phase; the wall seconds of each stage land in
         ``self.phase_seconds``."""
-        if mode != "local":
-            raise NotImplementedError(f"mode={mode!r}: {_NOT_PORTED}")
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}: one of {MODES}")
         cfg = self.config
         hist: Dict[str, np.ndarray] = {}
         self.phase_seconds = {}
@@ -470,21 +599,40 @@ class ClipSolver:
             return (*self.make_optimizer(state), target_6d, frame_weights)
 
         state, opt, target_6d, frame_weights = timed("init", init)
+
+        def ckpt(name):
+            if checkpoint_dir:
+                save_solver_state(
+                    os.path.join(checkpoint_dir, f"{name}.pt"), state, opt,
+                    step=sum(len(v) for v in hist.values()))
+
+        def phase(name, num_steps):
+            hist[name] = timed(name, lambda: self._run_phase_auto(
+                state, opt, target_6d, frame_weights, num_steps,
+                name)).numpy()
+            ckpt(name)
+
         n_a = int(cfg.num_iter * cfg.stage_split)
-        n_b = cfg.num_iter - n_a
-        hist["local_a"] = timed("local_a", lambda: self._run_phase_auto(
-            state, opt, target_6d, frame_weights, n_a, "local_a")).numpy()
-        hist["local_b"] = timed("local_b", lambda: self._run_phase_auto(
-            state, opt, target_6d, frame_weights, n_b, "local_b")).numpy()
-        weight_right = timed("detect_contact",
-                             lambda: self.detect_contact(state))
-        weight_right = weight_right.to(self.device)
-        n_c = int(cfg.contact_phase_frac * cfg.num_iter)
-        hist["local_skate"] = timed("local_skate", lambda:
-                                    self._run_skate_phase(
-                                        state, opt, target_6d,
-                                        frame_weights, n_c,
-                                        weight_right)).numpy()
+        if mode == "local":
+            phase("local_a", n_a)
+            phase("local_b", cfg.num_iter - n_a)
+            weight_right = timed("detect_contact",
+                                 lambda: self.detect_contact(state))
+            weight_right = weight_right.to(self.device)
+            n_c = int(cfg.contact_phase_frac * cfg.num_iter)
+            hist["local_skate"] = timed("local_skate", lambda:
+                                        self._run_skate_phase(
+                                            state, opt, target_6d,
+                                            frame_weights, n_c,
+                                            weight_right)).numpy()
+            ckpt("local_skate")
+        elif mode == "global":
+            phase("global_a", n_a)
+            phase("global_b", cfg.num_iter - n_a)
+        else:
+            n_dct_a = int(cfg.num_iter_dct * cfg.dct_split)
+            phase("dct_a", n_dct_a)
+            phase("dct_b", cfg.num_iter_dct - n_dct_a)
         if verbose:
             for k, v in hist.items():
                 print(f"[fpv4d_torch.clip_solve] {k}: loss {v[0]:.4f} -> "

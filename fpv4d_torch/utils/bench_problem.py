@@ -37,8 +37,10 @@ def standard_problem(T: int = 900, num_verts: int = 10475,
                      num_iter_dct: int = 10000, skate_subset: int = 1024,
                      skate_body_only: bool = True,
                      contact_compact: Optional[int] = 192,
+                     nn_impl: str = "grid",
                      device="cuda") -> StandardProblem:
-    """Build the standard problem at the given sizes on `device`."""
+    """Build the standard problem at the given sizes on `device`;
+    nn_impl='brute' gives its brute-force contact-NN variant (K2)."""
     dev = torch.device(device)
     model = smplx.synthetic_model(num_verts=num_verts, seed=0,
                                   sparse_weights=True, device=dev)
@@ -64,7 +66,7 @@ def standard_problem(T: int = 900, num_verts: int = 10475,
         model=model, vposer_params=vp, scene_verts=scene,
         contact_vids=np.concatenate([vids_l, vids_r]),
         contact_vids_left=vids_l, contact_vids_right=vids_r,
-        config=cfg, device=dev)
+        config=cfg, nn_impl=nn_impl, device=dev)
 
     def smooth_noise(n, dim, scale):
         k = 11

@@ -1,0 +1,203 @@
+"""The port's globalopt CLI and the io/params/transforms/contact helpers
+it reads through, against the JAX package's, on the fixture of
+tests/test_cli.py (3 frames, the 10,475-vertex synthetic stand-in, a
+300-point random scene, a camerapose.txt).
+
+The port's CLI runs with ``--device cpu --nn-impl brute`` (K2's plain
+version) and the reference's with ``--nn-impl xla`` (its exact brute
+force off the TPU). Tolerances: the written body parameters within
+2*lr (the L1 reconstruction and smoothness terms start at exact zeros,
+where last-bit differences steer single Adam steps by +-lr) with 99%
+of entries within 1e-4; scale within 1e-5 and camera_ext within 1e-6
+(f32 summation order). File formats and integer logic are exact."""
+import json
+import os
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from fpv4d.core import transforms as JT
+from fpv4d.io import body_pkl as JBP
+from fpv4d.io import colmap as JCOL
+from fpv4d.io import ply as JPLY
+from fpv4d.models import params as JP
+from fpv4d.ops import contact as JC
+from fpv4d_torch.core import transforms as TT
+from fpv4d_torch.io import body_pkl as TBP
+from fpv4d_torch.io import colmap as TCOL
+from fpv4d_torch.io import ply as TPLY
+from fpv4d_torch.models import params as TP
+from fpv4d_torch.ops import contact as TC
+
+LR = 0.005
+
+
+@pytest.fixture(scope="module")
+def clip_dir(tmp_path_factory):
+    """body_gen pkls + scene.ply + camerapose.txt, as tests/test_cli.py
+    makes them."""
+    rng = np.random.RandomState(0)
+    root = tmp_path_factory.mktemp("clip")
+    T = 3
+    body = (rng.randn(T, 75) * 0.1).astype(np.float32)
+    JBP.save_clip(str(root / "body_gen"), body)
+    scene = rng.randn(300, 3).astype(np.float32)
+    JPLY.write_ply(str(root / "scene.ply"), scene)
+    with open(root / "camerapose.txt", "w") as f:
+        for t in range(T):
+            f.write(f"{t:06d}.jpg 1 0 0 0 0.1 0.2 {0.3 + t}\n")
+    return root
+
+
+def _args(clip_dir, out, mode="global"):
+    return [str(clip_dir / "body_gen"), str(out), mode,
+            "--scene", str(clip_dir / "scene.ply"),
+            "--camera", str(clip_dir / "camerapose.txt"),
+            "--iters", "4", "--model", "NONE", "--vposer", "NONE"]
+
+
+def _frames(path):
+    return [JBP.load_frame(str(p)) for p in sorted(path.glob("*.pkl"))]
+
+
+def test_globalopt_matches_reference(clip_dir, tmp_path):
+    from fpv4d.cli.globalopt import main as jmain
+    from fpv4d_torch.cli.globalopt import main as tmain
+    assert jmain(_args(clip_dir, tmp_path / "j") + ["--nn-impl",
+                                                    "xla"]) == 0
+    assert tmain(_args(clip_dir, tmp_path / "t") + [
+        "--nn-impl", "brute", "--device", "cpu"]) == 0
+    jf, tf = _frames(tmp_path / "j"), _frames(tmp_path / "t")
+    assert len(tf) == len(jf) == 3
+    assert [p.name for p in sorted((tmp_path / "t").glob("*.pkl"))] == \
+        [p.name for p in sorted((tmp_path / "j").glob("*.pkl"))]
+    body_err = []
+    for a, b in zip(tf, jf):
+        assert a.keys() == b.keys()
+        assert "scale" in a and "camera_ext" in a
+        np.testing.assert_allclose(a["scale"], b["scale"], atol=1e-5)
+        np.testing.assert_allclose(a["camera_ext"], b["camera_ext"],
+                                   atol=1e-6)
+        for k in TP.SLICES:
+            assert a[k].shape == b[k].shape, k
+            body_err.append(np.abs(a[k] - b[k]).ravel())
+    err = np.concatenate(body_err)
+    assert np.mean(err <= 1e-4) >= 0.99 and err.max() <= 2 * LR
+
+
+def test_globalopt_sdf_and_checkpoints(clip_dir, tmp_path):
+    """The collision term and per-phase checkpoints through the CLI
+    (dct mode, grid contact)."""
+    from fpv4d_torch.cli.globalopt import main as tmain
+    d = 8
+    lin = np.linspace(-4, 4, d, dtype=np.float32)
+    vals = np.broadcast_to(lin[None, :, None] + 1.0, (d, d, d))
+    np.save(tmp_path / "sdf.npy", np.ascontiguousarray(vals).ravel())
+    with open(tmp_path / "sdf.json", "w") as f:
+        json.dump({"min": [-4, -4, -4], "max": [4, 4, 4], "dim": d}, f)
+    rc = tmain(_args(clip_dir, tmp_path / "fit", "dct") + [
+        "--device", "cpu", "--sdf-json", str(tmp_path / "sdf.json"),
+        "--sdf-npy", str(tmp_path / "sdf.npy"),
+        "--checkpoint-dir", str(tmp_path / "ckpt")])
+    assert rc == 0
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["dct_a.pt", "dct_b.pt"]
+    frames = _frames(tmp_path / "fit")
+    assert len(frames) == 3 and all(np.isfinite(f["scale"]) for f in frames)
+
+
+def test_bad_mode_exits_2(clip_dir, tmp_path):
+    from fpv4d_torch.cli.globalopt import main as tmain
+    with pytest.raises(SystemExit) as e:
+        tmain(_args(clip_dir, tmp_path / "x", "bogus") + ["--device", "cpu"])
+    assert e.value.code == 2
+    with pytest.raises(SystemExit) as e:
+        tmain(_args(clip_dir, tmp_path / "x") + ["--nn-impl", "xla"])
+    assert e.value.code == 2
+
+
+def test_default_device_needs_a_card(clip_dir, tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device would run")
+    from fpv4d_torch.cli.globalopt import main as tmain
+    assert tmain(_args(clip_dir, tmp_path / "x")) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not (tmp_path / "x").exists()
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_ply_round_trip_matches_reference(tmp_path, binary):
+    rng = np.random.RandomState(1)
+    v = rng.randn(50, 3).astype(np.float32)
+    f = rng.randint(0, 50, (20, 3)).astype(np.int32)
+    TPLY.write_ply(str(tmp_path / "t.ply"), v, f, binary=binary)
+    JPLY.write_ply(str(tmp_path / "j.ply"), v, f, binary=binary)
+    assert (tmp_path / "t.ply").read_bytes() == \
+        (tmp_path / "j.ply").read_bytes()
+    tv, tf = TPLY.read_ply(str(tmp_path / "j.ply"))
+    np.testing.assert_allclose(tv, v, rtol=1e-6)
+    np.testing.assert_array_equal(tf, f)
+
+
+def test_body_pkl_and_params_match_reference(tmp_path):
+    rng = np.random.RandomState(2)
+    body = rng.randn(4, 75).astype(np.float32)
+    cam = rng.randn(4, 4, 4).astype(np.float32)
+    tp = TBP.save_clip(str(tmp_path / "t"), body, 1.7, cam)
+    jp = JBP.save_clip(str(tmp_path / "j"), body, 1.7, cam)
+    assert [os.path.basename(p) for p in tp] == \
+        [os.path.basename(p) for p in jp]
+    for a, b in zip(tp, jp):
+        da, db = TBP.load_frame(a), JBP.load_frame(b)
+        assert da.keys() == db.keys()
+        for k in da:
+            np.testing.assert_array_equal(da[k], db[k])
+    np.testing.assert_array_equal(TBP.load_clip(str(tmp_path / "t")), body)
+    np.testing.assert_array_equal(TBP.load_clip(str(tmp_path / "j")),
+                                  JBP.load_clip(str(tmp_path / "t")))
+    frame = TBP.load_frame(tp[0])
+    np.testing.assert_array_equal(TP.from_pkl_dict(frame, False),
+                                  JP.from_pkl_dict(frame, False))
+    with pytest.raises(FileNotFoundError):
+        TBP.load_clip(str(tmp_path / "empty"))
+
+
+def test_camera_and_transforms_match_reference(clip_dir):
+    path = str(clip_dir / "camerapose.txt")
+    q, t = TCOL.read_camerapose(path)
+    jq, jt = JCOL.read_camerapose(path)
+    np.testing.assert_array_equal(q, jq)
+    np.testing.assert_array_equal(t, jt)
+    np.testing.assert_allclose(TCOL.camera_ext_from_file(path),
+                               np.asarray(JCOL.camera_ext_from_file(path)),
+                               atol=1e-6)
+    rng = np.random.RandomState(3)
+    qv = rng.randn(5, 4).astype(np.float32)
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    tv = rng.randn(5, 3).astype(np.float32)
+    w = TT.colmap_pose_to_world_from_cam(torch.as_tensor(qv),
+                                         torch.as_tensor(tv))
+    np.testing.assert_allclose(
+        w.numpy(), np.asarray(JT.colmap_pose_to_world_from_cam(
+            jnp.asarray(qv), jnp.asarray(tv))), atol=1e-6)
+    inv = TT.invert_rigid(w)
+    np.testing.assert_allclose(inv.numpy(), np.asarray(JT.invert_rigid(
+        jnp.asarray(w.numpy()))), atol=1e-6)
+    np.testing.assert_allclose(torch.matmul(w, inv).numpy(),
+                               np.broadcast_to(np.eye(4), (5, 4, 4)),
+                               atol=1e-5)
+    xyz = clip_dir / "pts.xyz"
+    np.savetxt(xyz, rng.randn(7, 3))
+    np.testing.assert_array_equal(TCOL.read_xyz(str(xyz)),
+                                  JCOL.read_xyz(str(xyz)))
+
+
+def test_contact_ids_match_reference(tmp_path):
+    np.testing.assert_array_equal(
+        TC.contact_ids(str(tmp_path / "missing"), ("L_Leg", "R_Leg"), 2000),
+        JC.contact_ids(str(tmp_path / "missing"), ("L_Leg", "R_Leg"), 2000))
+    JC.write_synthetic_segments(str(tmp_path / "segs"), 2000, seed=3)
+    np.testing.assert_array_equal(
+        TC.contact_ids(str(tmp_path / "segs"), ("L_Leg",), 2000),
+        JC.contact_ids(str(tmp_path / "segs"), ("L_Leg",), 2000))

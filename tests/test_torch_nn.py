@@ -77,6 +77,35 @@ def test_grid_min_dist(grids):
     assert np.all(got[0, :5] == TNN.BIG)
 
 
+def test_grid_min_dist_gradient_matches_reference():
+    """Under autodiff (the exact per-step query of
+    contact_refresh_steps=0), including queries exactly midway between
+    two scene points, where JAX's min splits the gradient evenly."""
+    g1 = np.arange(-2.0, 2.01, 0.5, dtype=np.float32)
+    xs, zs = np.meshgrid(g1, g1)
+    scene = np.stack([xs.ravel(), np.full(xs.size, -1.0, np.float32),
+                      zs.ravel()], 1).astype(np.float32)
+    jg = JNN.build_voxel_grid(scene, h=0.25, slots_per_cell=16)
+    tg = convert.voxel_grid_from_numpy(
+        np.asarray(jg.cand_pts), np.asarray(jg.cand_idx),
+        np.asarray(jg.origin), jg.dims, jg.h)
+    q = _queries(T=3, N=20, seed=5)
+    q[0, :3] = [[0.25, -0.8, 0.0], [-1.0, -0.7, 0.75],
+                [0.25, -0.9, 1.25]]           # exact two-way ties
+    g = np.random.RandomState(4).randn(*q.shape[:-1]).astype(np.float32)
+    qt = torch.tensor(q, requires_grad=True)
+    d = TNN.grid_min_dist(tg, qt)
+    (d * torch.as_tensor(g)).sum().backward()
+    jd, vjp = jax.vjp(lambda x: JNN.grid_min_dist(jg, x), jnp.asarray(q))
+    (jdq,) = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(d.detach().numpy(), np.asarray(jd),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(qt.grad.numpy(), np.asarray(jdq), rtol=1e-5,
+                               atol=1e-5)
+    # at a tie the gradient pulls toward the midpoint of the two points
+    assert qt.grad[0, 0, 0] == 0.0 and qt.grad[0, 1, 2] == 0.0
+
+
 @pytest.mark.parametrize("budget", [64, 3])
 def test_frame_candidates_identical(grids, budget):
     jg, tg = grids
