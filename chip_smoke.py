@@ -6,21 +6,28 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, each fatal on failure:
   1. device     the card's name and power limit (nvidia-smi);
-  2. build      K1 (csrc/cand_nn.cu) and K2 (csrc/chamfer_nn.cu), one
-                nvcc each, started together; ptxas' register lines;
+  2. build      K1 (csrc/cand_nn.cu) and K2 (csrc/chamfer_nn.cu), both
+                with csrc/gram_nn.cuh, one nvcc each, started together;
+                ptxas' register and spill lines;
   3. K1         the kernel held bit-exactly against its plain PyTorch
                 version on the standard problem's candidate tables
                 ([900, N, 192] compacted, [900, N, 512] uncompacted),
-                plus an all-invalid frame and duplicate candidates;
-                kernel, plain and library (torch.cdist + min) times;
+                plus an all-invalid frame, duplicate candidates,
+                candidates on a sphere 1 ulp apart and every slot
+                invalid but one; kernel, plain and library
+                (torch.cdist + min) times, the share of the bound, and
+                the exact re-checks per query;
   4. K2         the kernel held bit-exactly against its plain version
                 (dist, idx, dx; dy within the bound of a reordered f32
                 sum) at the global solve's shape, the standard problem's
                 initial contact vertices [900, 813, 3] against the
                 100,489-point scene, and on sizes that fill no tile,
-                duplicated scene points, far queries and queries equal
-                to scene points; kernel, plain, library
-                (torch.cdist + min over 8,192-query chunks) times;
+                duplicated scene points, far queries, queries equal
+                to scene points, points on a sphere 1 ulp apart and
+                coordinates near +-1,000; kernel, plain, library
+                (torch.cdist + min over 8,192-query chunks) times, the
+                share of the bound, and the re-checks per query (main
+                shape and far queries);
   5. local      the full-size standard local-mode clip solve (T=900,
                 V=10,475, 100,489 scene points, compact 192, skate 1024
                 body-only): finite, decreasing per-phase losses; K1
@@ -73,30 +80,50 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the
-# tensor cores
+# H100 SXM (NVIDIA data sheet): HBM bytes/s; CUDA-core lane
+# instructions/s, 132 SMs x 128 lanes x 1.98 GHz boost clock
 _HBM_BPS = 3.35e12
-_F32_FLOPS = 67e12
+_LANE_OPS = 132 * 128 * 1.98e9
 
 
 def _bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / _HBM_BPS * 1e3, ops / _F32_FLOPS * 1e3
+    t_bytes, t_ops = nbytes / _HBM_BPS * 1e3, ops / _LANE_OPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
+# The least work of a nearest-neighbour search, whatever unit does it:
+# the Gram product can go to the tensor cores, but the running minimum
+# needs at least one CUDA-core instruction per pair. (The 67 TFLOP/s f32
+# peak counts an FMA as two operations, and no unit has to do the
+# difference form's 8 f32 operations per pair.)
+
+
 def _k1_bound_ms(T: int, N: int, P: int):
     """Least time for K1's work: each input read once, each output
-    written once, and 8 f32 operations per (query, candidate) pair."""
+    written once, and one CUDA-core instruction per (query, candidate)
+    pair."""
     nbytes = (T * N * 3 * 4 + T * P * 3 * 4 + T * P      # q, cand, valid
               + T * N * 4 + T * N * 4 + T * N * 3 * 4)   # dist, slot, near
-    return _bound_ms(nbytes, 8.0 * T * N * P)
+    return _bound_ms(nbytes, float(T * N * P))
 
 
 def _k2_bound_ms(Q: int, M: int):
     """Least time for K2's work, counted as for K1: x and y read once,
-    dist and idx written once, 8 f32 operations per (query, point)."""
-    return _bound_ms(Q * 3 * 4 + M * 3 * 4 + Q * 4 + Q * 4, 8.0 * Q * M)
+    dist and idx written once, one instruction per (query, point)."""
+    return _bound_ms(Q * 3 * 4 + M * 3 * 4 + Q * 4 + Q * 4, float(Q * M))
+
+
+def _rechecks(label, fn, shape, dev):
+    """Run fn(rechecks) with a per-query count of exact re-evaluations
+    and print its mean and maximum."""
+    n = torch.zeros(shape, dtype=torch.int32, device=dev)
+    fn(n)
+    torch.cuda.synchronize()
+    mean, mx = float(n.double().mean()), int(n.max())
+    print(f"[rechecks] {label}: mean {mean:.4f} max {mx} per query",
+          flush=True)
+    return mean, mx
 
 
 def _check_k1(C, q, cand, valid, label):
@@ -156,6 +183,18 @@ def _check_k2(K, x, y, label):
     if not ok:
         raise AssertionError(f"K2 disagrees with its plain version: {label}")
     return err
+
+
+def _sphere(centre, n, dev):
+    """n points [T, n, 3] at distance ~0.2 around each centre [T, 1, 3]
+    in f32, half of them moved by one ulp in z: near-ties of every
+    order."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    u = torch.randn((centre.shape[0], n, 3), device=dev, generator=gen)
+    y = centre + 0.2 * u / u.norm(dim=-1, keepdim=True)
+    y[:, ::2, 2] = torch.nextafter(y[:, ::2, 2],
+                                   torch.full_like(y[:, ::2, 2], 1e30))
+    return y.contiguous()
 
 
 def _reset_counts(C, K):
@@ -332,6 +371,13 @@ def main() -> int:
     cand_d[:, 1::2] = cand_d[:, 0::2]
     _check_k1(C, q, cand_d, torch.ones_like(fc192.valid),
               "duplicate candidates")
+    sph_c = _sphere(q[:5, :1], 192, dev)
+    _check_k1(C, q[:5].contiguous(), sph_c,
+              torch.ones_like(fc192.valid[:5]),
+              "candidates on a sphere around query 0, 1 ulp apart")
+    valid_1 = torch.zeros_like(fc192.valid)
+    valid_1[:, 100] = True
+    _check_k1(C, q, fc192.cand, valid_1, "every slot invalid but one")
     d_e, _, n_e = C.cand_nn_cuda(q, fc192.cand, valid_e)
     if not (bool((d_e[3] == C.BIG).all()) and torch.equal(n_e[3], q[3])):
         raise AssertionError("all-invalid frame must give 1e4 and q")
@@ -346,8 +392,11 @@ def main() -> int:
         timings[P] = (ms, plain_ms, lib_ms, bound_ms, bound_by)
         print(f"[K1] P={P}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"cdist+min {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})", flush=True)
-    del fc512, fc192, cand_d, valid_e
+              f"({bound_by}), {bound_ms / ms:.1%} of the bound",
+              flush=True)
+        _rechecks(f"K1 [{T}, {N}, {P}]", lambda n: C.cand_nn_cuda(
+            q, fc.cand, fc.valid, rechecks=n), (T, N), dev)
+    del fc512, fc192, cand_d, valid_e, valid_1, sph_c
     torch.cuda.empty_cache()
 
     # 4. K2 against its plain version at the global solve's shape
@@ -360,6 +409,9 @@ def main() -> int:
     dup = torch.cat([scene[:30_000], scene[:30_000], scene[:5_001]])
     _check_k2(K, x_odd, dup, "duplicated scene points")
     _check_k2(K, x_odd * 40.0 + 100.0, scene, "far queries")
+    _rechecks("K2 far queries [7, 111] x scene", lambda n:
+                       K.nn_distance_cuda(x_odd * 40.0 + 100.0, scene,
+                                          rechecks=n), (7, 111), dev)
     x_eq = x_odd.clone()
     x_eq[0, :50] = scene[1000:1050]
     _check_k2(K, x_eq, scene, "queries equal to scene points")
@@ -369,6 +421,11 @@ def main() -> int:
         raise AssertionError("a query equal to a scene point must find it")
     x_rand = torch.rand((3, 1000, 3), device=dev, generator=gen) * 10 - 5
     _check_k2(K, x_rand, scene, "random queries over the scene box")
+    sph = _sphere(x_odd[:1, :1], 100_000, dev)
+    _check_k2(K, x_odd, sph[0], "100,000 points on a sphere around query "
+              "0, 1 ulp apart")
+    _check_k2(K, x_odd + 1000.0, torch.cat([scene + 1000.0, scene - 1000.0]),
+              "coordinates near +-1,000")
 
     Q, M = q.numel() // 3, scene.shape[0]
     k2_ms = _median_ms(lambda: K.nn_distance_cuda(q, scene), reps=10)
@@ -384,9 +441,11 @@ def main() -> int:
     k2_bound, k2_bound_by = _k2_bound_ms(Q, M)
     print(f"[K2] Q={Q} M={M}: kernel {k2_ms:.4f} ms, plain "
           f"{k2_plain_ms:.4f} ms, cdist+min (8192-query chunks) "
-          f"{k2_lib_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_bound_by})",
-          flush=True)
-    del q, x_odd, dup, x_eq, x_rand
+          f"{k2_lib_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_bound_by}), "
+          f"{k2_bound / k2_ms:.1%} of the bound", flush=True)
+    _rechecks(f"K2 {tuple(q.shape[:2])} x {M}", lambda n:
+              K.nn_distance_cuda(q, scene, rechecks=n), q.shape[:2], dev)
+    del q, x_odd, dup, x_eq, x_rand, sph
     torch.cuda.empty_cache()
 
     cfg = solver.config

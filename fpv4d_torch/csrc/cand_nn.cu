@@ -5,102 +5,176 @@
 // f32 nn_to_candidates contract of fpv4d/ops/nn.py:
 //   for frame t and query n:  d[p] = (dx*dx + dy*dy) + dz*dz, d = 1e4 on
 //   invalid slots; slot = first argmin; dist = min(d[slot], 1e4);
-//   nearest = cand[t, slot] where dist < 1e4, else q[t, n].
+//   nearest = cand[t, slot] where dist < 1e4, else q[t, n],
+// bit-identical to cand_nn_plain (ops/cand_cuda.py).
 //
-// What bounds it on an H100: at the main path's shapes (T=900 frames,
-// N~870 contact vertices, P=192 candidates after compaction) it does
-// ~150 M candidate pairs x 8 f32 operations on the CUDA cores against
-// ~25 MB of HBM traffic (q and nearest dominate), so it is bound by
-// operations, not bytes (67 TFLOP/s f32 vs 3.35 TB/s).
+// What bounds it on an H100: at the main path's shapes (T = 900 frames,
+// N = 813 contact vertices, P = 192 candidates after compaction) it has
+// 1.4e8 pairs, 4.2 us at one CUDA-core instruction per pair for the
+// running minimum (the Gram product can go to the tensor cores), against
+// 25.7 MB of HBM traffic with each input read once and each output
+// written once (q and nearest dominate), 7.7 us at 3.35 TB/s: it is
+// bound by bytes.
 //
-// Design: one block per (frame, tile of 128 queries), one thread per
-// query. The frame's candidates are staged in shared memory in chunks
-// of 512 float4 (x, y, z, invalid flag; 8 KB), so any P works; every
-// thread of a warp reads the same candidate, a shared-memory broadcast.
-// The distance is written with __fmul_rn/__fadd_rn so nvcc cannot
-// contract it into FMAs: the result is bit-identical to the plain
-// PyTorch version, whose elementwise ops run unfused. A strict `<`
-// keeps the smallest slot among ties, as torch.min does.
+// Design: the tile routine of K2 (csrc/gram_nn.cuh: the Gram-form filter
+// on the tensor cores, its margin and the exact re-check). One block of
+// 4 warps takes a frame and 128 of its queries, 32 per warp, centred on
+// the block's first query; warps whose rows are all past N only help to
+// stage. The frame's candidates are read with coalesced loads (floats
+// and valid bytes in order) in stages of 512, and split once per block
+// into mma B fragments; an invalid slot carries |y|^2 = 1e30 and b = 0,
+// so it never passes the margin once a row has a distance. A first
+// pass over the first stage only lowers each row's minimum filter value,
+// which bounds its best distance (upper_d) and sets its threshold; the
+// second pass re-evaluates only the slots within the margin, so the
+// running best never has to creep down slot by slot. A re-check
+// follows the plain rule (an invalid slot counts 1e4). A row whose exact
+// best is 1e4 or more, or that found none (no valid slot), rescans its
+// P slots exactly with the 1e4 rule in ascending order with a strict
+// `<`, which reproduces the plain version's winner at saturation.
+//
+// What holds it back (measured on an H100): at P = 192 a row has only
+// six chunks, so its fixed costs outweigh its pairs: the seed pass
+// doubles the mma and minima, and the bounds, the quad reduction and
+// each of its ~2.5 re-checks (a chain of shared-memory round trips on
+// one lane while its warp waits) come once per row. It runs slower than
+// the CUDA-core design it replaced (PERF.md).
 #include <cuda_runtime.h>
+
+#include "gram_nn.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kChunk = 512;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kQueries = kWarps * gram::kRowsPerWarp;
+constexpr int kStage = 512;  // candidates per shared stage
 constexpr float kBig = 1e4f;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 8)
 cand_nn_kernel(const float* __restrict__ q, const float* __restrict__ cand,
                const unsigned char* __restrict__ valid,
                float* __restrict__ dist, int* __restrict__ slot,
-               float* __restrict__ nearest, int N, int P) {
-  __shared__ float4 sc[kChunk];
-  const int t = blockIdx.y;
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = n < N;
-  const long long qi = (long long)t * N + n;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (live) {
-    qx = q[3 * qi];
-    qy = q[3 * qi + 1];
-    qz = q[3 * qi + 2];
-  }
-  const float* cf = cand + (long long)t * P * 3;
-  const unsigned char* vf = valid + (long long)t * P;
+               float* __restrict__ nearest, int* __restrict__ rechecks,
+               int N, int P) {
+  __shared__ uint4 frag[kStage / gram::kChunk * gram::kChunkFrags];
+  __shared__ float raw[3 * kStage];
+  __shared__ unsigned char rv[kStage];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tf = blockIdx.y;
+  const int n0 = blockIdx.x * kQueries;
+  const long long qf = (long long)tf * N;  // first query row of the frame
+  const float* cf = cand + (long long)tf * P * 3;
+  const unsigned char* vf = valid + (long long)tf * P;
+  const float cx = q[3 * (qf + n0)], cy = q[3 * (qf + n0) + 1],
+              cz = q[3 * (qf + n0) + 2];
 
-  float best = 0.f;
-  int bi = 0;
-  for (int base = 0; base < P; base += kChunk) {
-    const int m = min(kChunk, P - base);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int i = threadIdx.x; i < m; i += kThreads) {
-      const int p = base + i;
-      sc[i] = make_float4(cf[3 * p], cf[3 * p + 1], cf[3 * p + 2],
-                          vf[p] ? 0.f : 1.f);
+  __shared__ gram::RowState states[kWarps];
+  gram::Rows s;
+  bool live[gram::kRows];
+  int n[gram::kRows];
+  float qx[gram::kRows], qy[gram::kRows], qz[gram::kRows];
+#pragma unroll
+  for (int r = 0; r < gram::kRows; ++r) {
+    n[r] = n0 + warp * gram::kRowsPerWarp + 16 * (r >> 1) + g + 8 * (r & 1);
+    live[r] = n[r] < N;
+    const long long i = 3 * (qf + n[r]);
+    qx[r] = live[r] ? q[i] : 0.f;
+    qy[r] = live[r] ? q[i + 1] : 0.f;
+    qz[r] = live[r] ? q[i + 2] : 0.f;
+  }
+  gram::init_rows(s, &states[warp], lane, qx, qy, qz, live, cx, cy, cz);
+  const bool warp_live = n0 + warp * gram::kRowsPerWarp < N;
+
+  for (int base = 0; base < P; base += kStage) {
+    const int m = min(kStage, P - base);
+    __syncthreads();  // the previous stage is no longer read
+    for (int i = threadIdx.x; i < 3 * m; i += kThreads)
+      raw[i] = cf[3 * base + i];
+    for (int i = threadIdx.x; i < m; i += kThreads) rv[i] = vf[base + i];
+    __syncthreads();
+    const int nchunks = (m + gram::kChunk - 1) / gram::kChunk;
+    uint32_t* words = reinterpret_cast<uint32_t*>(frag);
+    for (int p = threadIdx.x; p < nchunks * gram::kChunk; p += kThreads) {
+      const bool real = p < m && rv[p];
+      gram::stage(words, p, real ? raw[3 * p] : 0.f,
+                  real ? raw[3 * p + 1] : 0.f, real ? raw[3 * p + 2] : 0.f,
+                  real, cx, cy, cz);
     }
     __syncthreads();
-    if (live) {
-      for (int i = 0; i < m; ++i) {
-        const float4 c = sc[i];
-        const float dx = __fsub_rn(qx, c.x);
-        const float dy = __fsub_rn(qy, c.y);
-        const float dz = __fsub_rn(qz, c.z);
-        float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                            __fmul_rn(dz, dz));
-        if (c.w != 0.f) d = kBig;
-        const int p = base + i;
-        if (p == 0 || d < best) {
+    // re-checks read the stage from shared memory, with the plain rule
+    const auto exact = [&](float qx, float qy, float qz, int p) {
+      const int i = p - base;
+      return rv[i] ? gram::exact_d(qx, qy, qz, raw[3 * i], raw[3 * i + 1],
+                                   raw[3 * i + 2])
+                   : kBig;
+    };
+    if (base == 0) {  // seed: the first stage's filter minimum
+      float seed[gram::kRows] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
+                                 CUDART_INF_F};
+      if (warp_live)
+        for (int k = 0; k < nchunks; ++k)
+          gram::seed_chunk(s, frag + k * gram::kChunkFrags, seed);
+      gram::seed_bounds(s, seed);
+    }
+    if (warp_live) gram::tile(s, frag, nchunks, base, P, exact);
+    if (base + kStage < P) gram::share_bounds(s);
+  }
+
+  gram::reduce_quad(s);
+  if (t != 0) return;
+#pragma unroll
+  for (int r = 0; r < gram::kRows; ++r) {
+    if (!live[r]) continue;
+    float best = s.best(r);
+    int bi = s.bi(r);
+    if (!(best < kBig)) {  // saturated or no valid slot: rescan exactly
+      const auto plain = [&](int p) {
+        return vf[p] ? gram::exact_d(s.qx(r), s.qy(r), s.qz(r), cf[3 * p],
+                                     cf[3 * p + 1], cf[3 * p + 2])
+                     : kBig;
+      };
+      best = plain(0);
+      bi = 0;
+      for (int p = 1; p < P; ++p) {
+        const float d = plain(p);
+        if (d < best) {
           best = d;
           bi = p;
         }
       }
+      s.rechecks(r) += P;
     }
+    const long long i = qf + n[r];
+    // min(best, 1e4), written so a NaN propagates as torch.clamp does
+    const float dd = (best > kBig) ? kBig : best;
+    const bool hit = dd < kBig;
+    dist[i] = dd;
+    slot[i] = bi;
+    nearest[3 * i] = hit ? cf[3 * bi] : s.qx(r);
+    nearest[3 * i + 1] = hit ? cf[3 * bi + 1] : s.qy(r);
+    nearest[3 * i + 2] = hit ? cf[3 * bi + 2] : s.qz(r);
+    if (rechecks != nullptr) rechecks[i] = s.rechecks(r);
   }
-  if (!live) return;
-  // min(best, 1e4), written so a NaN propagates as torch.clamp does
-  const float dd = (best > kBig) ? kBig : best;
-  const bool hit = dd < kBig;
-  dist[qi] = dd;
-  slot[qi] = bi;
-  nearest[3 * qi] = hit ? cf[3 * bi] : qx;
-  nearest[3 * qi + 1] = hit ? cf[3 * bi + 1] : qy;
-  nearest[3 * qi + 2] = hit ? cf[3 * bi + 2] : qz;
 }
 
 }  // namespace
 
 // Plain C entry for ctypes. All tensors contiguous: q [T,N,3] f32,
 // cand [T,P,3] f32, valid [T,P] bool (1 byte), dist [T,N] f32,
-// slot [T,N] int32, nearest [T,N,3] f32. Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// slot [T,N] int32, nearest [T,N,3] f32; rechecks is null or [T,N]
+// int32, which then receives each query's number of exact evaluations.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int cand_nn_forward(const void* q, const void* cand,
                                const void* valid, void* dist, void* slot,
-                               void* nearest, int T, int N, int P,
-                               void* stream) {
-  const dim3 grid((N + kThreads - 1) / kThreads, T);
+                               void* nearest, void* rechecks, int T, int N,
+                               int P, void* stream) {
+  const dim3 grid((N + kQueries - 1) / kQueries, T);
   cand_nn_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(cand),
       static_cast<const unsigned char*>(valid), static_cast<float*>(dist),
-      static_cast<int*>(slot), static_cast<float*>(nearest), N, P);
+      static_cast<int*>(slot), static_cast<float*>(nearest),
+      static_cast<int*>(rechecks), N, P);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,13 +10,16 @@ distance is min(d, 1e4), and ``nearest`` is the winner's coordinates,
 or q itself where the distance saturates. The gradient is
 2 (q - nearest) g where dist < 1e4, and 0 elsewhere.
 
-The TPU kernel's bf16x3 splits, packed-index int-min and one-hot
-matmuls exist only because Mosaic ignores f32 matmul precision; here
-the kernel (csrc/cand_nn.cu) computes f32 differences directly, one
-thread per query, with the frame's candidates staged in shared memory.
-Its distance is written with __fmul_rn/__fadd_rn so nvcc cannot fuse
-it into FMAs: it is then bit-identical to ``cand_nn_plain`` on the card,
-whose elementwise ops run as separate kernels.
+The TPU kernel selects with a bf16x3 Gram form and a packed-index
+int-min, whose winners can differ from exact differences among
+near-ties. The kernel here (csrc/cand_nn.cu) runs the same folded
+product on the tensor cores through the tile routine it shares with K2
+(csrc/gram_nn.cuh), but only as a filter: every candidate that comes
+within a proven margin of a query's best is re-evaluated in the
+difference form, unfused, and a query whose best is 1e4 or more rescans
+its slots exactly with the 1e4 rule. It is then bit-identical to
+``cand_nn_plain`` on the card. ``filter_emulated`` repeats the filter in
+plain PyTorch (ops/gram_nn.py) for the CPU tests.
 
 The kernel is built with nvcc at first use (``build()``, see
 ops/cuda_build.py) from the source in the repository into
@@ -27,13 +30,16 @@ the CUDA toolkit; importing this module does not.
 from __future__ import annotations
 
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from fpv4d_torch.ops import cuda_build
+from fpv4d_torch.ops import cuda_build, gram_nn
 
 BIG = 1e4
+
+# queries of a frame per block of the kernel, centred on the first
+BLOCK_QUERIES = 128
 
 # kernel launches since the count was last reset (a plain integer: a
 # run sets it to 0 and reads it back to show the path used the kernel)
@@ -53,7 +59,7 @@ def build() -> float:
     t0 = time.perf_counter()
     ptr, i32 = cuda_build.POINTER, cuda_build.INT
     _launch, build_log = cuda_build.load_function(
-        SRC, "cand_nn_forward", [ptr] * 6 + [i32] * 3 + [ptr])
+        SRC, "cand_nn_forward", [ptr] * 7 + [i32] * 3 + [ptr])
     return time.perf_counter() - t0
 
 
@@ -89,10 +95,13 @@ def cand_nn_plain(q: torch.Tensor, cand: torch.Tensor,
     return dist, slot.to(torch.int32), nearest
 
 
-def cand_nn_cuda(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor
+def cand_nn_cuda(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor,
+                 rechecks: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 on the card; same contract as cand_nn_plain. Raises on
-    anything the kernel does not take."""
+    anything the kernel does not take. `rechecks`, an int32 [T, N]
+    tensor on the same card, receives each query's number of exact
+    evaluations (the solve path passes none)."""
     global launches
     if not (q.is_cuda and cand.is_cuda and valid.is_cuda):
         raise ValueError("cand_nn_cuda takes CUDA tensors")
@@ -107,6 +116,12 @@ def cand_nn_cuda(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor
     if T * N * 3 >= 2 ** 31 or T * cand.shape[1] * 3 >= 2 ** 31:
         raise ValueError("cand_nn_cuda: tensors exceed int32 indexing")
     P = cand.shape[1]
+    if rechecks is not None and (
+            rechecks.dtype != torch.int32 or rechecks.device != q.device
+            or tuple(rechecks.shape) != (T, N)
+            or not rechecks.is_contiguous()):
+        raise ValueError("rechecks must be a contiguous int32 [T, N] "
+                         "tensor on the queries' device")
     if P == 0 or T == 0 or N == 0:
         return _empty(q)
     build()
@@ -116,12 +131,37 @@ def cand_nn_cuda(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor
     nearest = torch.empty((T, N, 3), dtype=torch.float32, device=q.device)
     err = _launch(
         q.data_ptr(), cand.data_ptr(), valid.data_ptr(), dist.data_ptr(),
-        slot.data_ptr(), nearest.data_ptr(), T, N, P,
+        slot.data_ptr(), nearest.data_ptr(),
+        0 if rechecks is None else rechecks.data_ptr(), T, N, P,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cand_nn kernel launch failed: CUDA error {err}")
     launches += 1
     return dist, slot, nearest
+
+
+def filter_emulated(q: torch.Tensor, cand: torch.Tensor,
+                    valid: torch.Tensor, kind: str = "bf16"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's filter in plain PyTorch, per frame and block of
+    BLOCK_QUERIES queries centred as the kernel centres them: (whether
+    each query's exact winner and ties pass the filter at the winner's
+    distance [T, N] bool, True where that distance is 1e4 or more and
+    the kernel rescans instead; how many slots pass there [T, N], 0
+    there)."""
+    T, N, _ = q.shape
+    d = torch.where(valid[:, None, :], dist_sq_tnp(q, cand), BIG)
+    hit = d.min(-1).values < BIG
+    won = torch.ones((T, N), dtype=torch.bool)
+    passes = torch.zeros((T, N), dtype=torch.int64)
+    for t in range(T):
+        for s in range(0, N, BLOCK_QUERIES):
+            e = min(N, s + BLOCK_QUERIES)
+            w, n = gram_nn.block_passes(q[t, s:e], cand[t], d[t, s:e],
+                                        valid[t], kind)
+            won[t, s:e] = w | ~hit[t, s:e]
+            passes[t, s:e] = torch.where(hit[t, s:e], n, 0)
+    return won, passes
 
 
 def cand_nn(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor):

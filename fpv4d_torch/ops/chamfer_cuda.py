@@ -10,12 +10,14 @@ reference's VJP: dx = g * 2 (x - y[idx]), and -dx scatter-added into dy
 (``index_add_``, computed only when y needs a gradient).
 
 The TPU kernel selects with a folded Gram form (|y|^2 - 2 x.y in bf16x3
-emulation) because Mosaic ignores f32 matmul precision; the kernel here
-(csrc/chamfer_nn.cu) computes each pair's difference form
-(dx*dx + dy*dy) + dz*dz in f32 without FMA contraction, so it is
-bit-identical to ``nn_distance_plain`` on the card. Its winners can
-differ from the reference's among near-ties (the distance at the winner
-is exact in both).
+emulation), whose winners can differ from exact differences among
+near-ties. The kernel here (csrc/chamfer_nn.cu) runs the same folded
+product on the tensor cores, but only as a filter: every point that
+comes within a proven margin of a query's best is re-evaluated in the
+difference form (dx*dx + dy*dy) + dz*dz, in f32 without FMA contraction,
+so the kernel is bit-identical to ``nn_distance_plain`` on the card.
+``filter_emulated`` repeats the filter in plain PyTorch (ops/gram_nn.py)
+so the CPU tests can prove that the exact winner always passes it.
 
 The kernel is built with nvcc at first use (``build()``, see
 ops/cuda_build.py); importing this module needs no CUDA toolkit.
@@ -23,11 +25,11 @@ ops/cuda_build.py); importing this module needs no CUDA toolkit.
 from __future__ import annotations
 
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from fpv4d_torch.ops import cuda_build
+from fpv4d_torch.ops import cuda_build, gram_nn
 
 # kernel launches since the count was last reset (a plain integer: a
 # run sets it to 0 and reads it back to show the path used the kernel)
@@ -41,6 +43,9 @@ build_log = ""
 # elements each (256 MB in f32)
 _PLAIN_ELEMS = 1 << 26
 
+# queries per block of the kernel, all centred on the block's first
+BLOCK_QUERIES = 256
+
 
 def build() -> float:
     """Compile (if not already built for this source) and load the
@@ -51,7 +56,7 @@ def build() -> float:
     t0 = time.perf_counter()
     ptr, i32 = cuda_build.POINTER, cuda_build.INT
     _launch, build_log = cuda_build.load_function(
-        SRC, "chamfer_nn_forward", [ptr] * 4 + [i32] * 2 + [ptr])
+        SRC, "chamfer_nn_forward", [ptr] * 5 + [i32] * 2 + [ptr])
     return time.perf_counter() - t0
 
 
@@ -94,10 +99,13 @@ def nn_distance_plain(x: torch.Tensor, y: torch.Tensor
             torch.cat(ids).reshape(batch_shape))
 
 
-def nn_distance_cuda(x: torch.Tensor, y: torch.Tensor
+def nn_distance_cuda(x: torch.Tensor, y: torch.Tensor,
+                     rechecks: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 on the card; same contract as nn_distance_plain. Raises on
-    anything the kernel does not take."""
+    anything the kernel does not take. `rechecks`, an int32 tensor of
+    x's batch shape on the same card, receives each query's number of
+    exact re-evaluations (the solve path passes none)."""
     global launches
     if not (x.is_cuda and y.is_cuda):
         raise ValueError("nn_distance_cuda takes CUDA tensors")
@@ -114,18 +122,44 @@ def nn_distance_cuda(x: torch.Tensor, y: torch.Tensor
         raise ValueError("nn_distance_cuda: tensors exceed int32 indexing")
     dist = torch.empty(batch_shape, dtype=torch.float32, device=x.device)
     idx = torch.empty(batch_shape, dtype=torch.int32, device=x.device)
+    if rechecks is not None and (
+            rechecks.dtype != torch.int32 or rechecks.device != x.device
+            or rechecks.shape != batch_shape
+            or not rechecks.is_contiguous()):
+        raise ValueError("rechecks must be a contiguous int32 tensor of "
+                         "the queries' batch shape on their device")
     if Q == 0:
         return dist, idx
     build()
     x, y = x.contiguous(), y.contiguous()
     err = _launch(
-        x.data_ptr(), y.data_ptr(), dist.data_ptr(), idx.data_ptr(), Q, M,
+        x.data_ptr(), y.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+        0 if rechecks is None else rechecks.data_ptr(), Q, M,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"chamfer_nn kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
     return dist, idx
+
+
+def filter_emulated(x: torch.Tensor, y: torch.Tensor, kind: str = "bf16"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's filter in plain PyTorch, blocks of BLOCK_QUERIES
+    queries centred as the kernel centres them: (whether each query's
+    exact winner and ties pass the filter at the winner's distance [...]
+    bool; how many points pass there [...] int64, the re-checks a query
+    costs once its winner is found)."""
+    _check_cloud(y)
+    xf = x.reshape(-1, 3)
+    won, passes = [], []
+    for s in range(0, xf.shape[0], BLOCK_QUERIES):
+        xb = xf[s:s + BLOCK_QUERIES]
+        w, n = gram_nn.block_passes(xb, y, dist_sq_qm(xb, y), kind=kind)
+        won.append(w)
+        passes.append(n)
+    return (torch.cat(won).reshape(x.shape[:-1]),
+            torch.cat(passes).reshape(x.shape[:-1]))
 
 
 def nn_index(x: torch.Tensor, y: torch.Tensor

@@ -2,7 +2,8 @@
 
 Each source is compiled by nvcc for ``sm_90a`` into a shared library
 with a plain C interface under ``fpv4d_torch/_build/`` (git-ignored),
-named after the source and a hash of its bytes, so an edited source
+named after the source and a hash of its bytes and of the bytes of
+every ``csrc/*.cuh`` header it includes, so an edited source or header
 rebuilds and an unchanged one is built once. ``compile_sources`` starts
 one nvcc per missing library, all together, and waits for them;
 ``load_function`` compiles one source if needed, opens it with ctypes
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -28,7 +30,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-Xptxas", "-v", "-I", str(CSRC))
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+\.cuh)"', re.M)
 
 
 def nvcc() -> str:
@@ -39,9 +42,27 @@ def nvcc() -> str:
                        "the CUDA toolkit's nvcc")
 
 
+def _headers(src: Path):
+    """The .cuh headers src includes with quotes, found beside it or in
+    CSRC, and those they include in turn, each once, in include order."""
+    seen, todo = [], [src]
+    while todo:
+        text = todo.pop(0).read_text()
+        for name in _INCLUDE.findall(text):
+            hdr = next((d / name for d in (src.parent, CSRC)
+                        if (d / name).exists()), None)
+            if hdr is not None and hdr not in seen:
+                seen.append(hdr)
+                todo.append(hdr)
+    return seen
+
+
 def library_path(src: Path) -> Path:
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}_{tag}.so"
+    """src's library, named after the hash of src and its headers."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in _headers(src):
+        h.update(hdr.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
 
 
 def compile_sources(srcs: Sequence[Path]) -> Dict[str, str]:

@@ -4,8 +4,10 @@ On the CPU the wrapper takes the plain version, and only because the
 tensors lie on the CPU; the kernel itself runs only on a CUDA card:
 those tests carry the `gpu` marker and skip here (see README, "PyTorch
 port (H100)", for the command that runs them on the card). On the card
-the kernel is held bit-exactly against the plain version: its distance
-is computed without FMA contraction, so no tolerance is needed."""
+the kernel is held bit-exactly against the plain version: its
+tensor-core filter only chooses which candidates to re-evaluate, and
+each re-evaluation is the plain version's difference form without FMA
+contraction, so no tolerance is needed."""
 import subprocess
 import sys
 from pathlib import Path
@@ -78,6 +80,53 @@ def test_kernel_matches_plain_bit_exactly(cuda_device, P):
     C.nn_to_candidates(qk, cand, valid).sum().backward()
     C.nn_to_candidates_ref(qp, cand, valid).sum().backward()
     assert torch.equal(qk.grad, qp.grad)
+
+
+def _near_tie_case(name, device):
+    q, cand, valid = _inputs(P=192)
+    if name == "sphere, 1 ulp":
+        rng = np.random.RandomState(5)
+        u = rng.randn(7, 192, 3)
+        u /= np.linalg.norm(u, axis=2, keepdims=True)
+        c = (q[:, :1].numpy() + 0.2 * u).astype(np.float32)
+        c[:, ::2, 2] = np.nextafter(c[:, ::2, 2], np.float32(np.inf))
+        cand = torch.as_tensor(c)
+        valid = torch.ones(7, 192, dtype=torch.bool)
+    elif name == "near +-1000":
+        q = q + 1000.0
+        cand[:, ::2] += 1000.0
+        cand[:, 1::2] -= 1000.0
+    elif name == "N = 1":
+        q = q[:, :1].contiguous()
+    elif name == "every slot invalid but one":
+        valid[:] = False
+        valid[:, 100] = True
+    return (q.to(device), cand.to(device), valid.to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["sphere, 1 ulp", "near +-1000", "N = 1",
+                                  "every slot invalid but one"])
+def test_kernel_matches_plain_on_near_ties(cuda_device, case):
+    q, cand, valid = _near_tie_case(case, cuda_device)
+    rechecks = torch.zeros(q.shape[:2], dtype=torch.int32,
+                           device=cuda_device)
+    d_k, s_k, n_k = C.cand_nn_cuda(q, cand, valid, rechecks=rechecks)
+    d_p, s_p, n_p = C.cand_nn_plain(q, cand, valid)
+    assert torch.equal(d_k, d_p) and torch.equal(s_k, s_p)
+    assert torch.equal(n_k, n_p)
+    assert bool((rechecks >= 1).all())        # every winner is re-checked
+    d_n, s_n, n_n = C.cand_nn_cuda(q, cand, valid)
+    assert torch.equal(d_n, d_k) and torch.equal(s_n, s_k)
+
+
+@pytest.mark.gpu
+def test_rechecks_must_fit_the_queries(cuda_device):
+    q, cand, valid = _inputs(device=cuda_device)
+    with pytest.raises(ValueError):
+        C.cand_nn_cuda(q, cand, valid,
+                       rechecks=torch.zeros(3, dtype=torch.int32,
+                                            device=cuda_device))
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -4,9 +4,11 @@ file runs on the card too (README, "PyTorch port (H100)").
 On the CPU the wrapper takes the plain version, and only because the
 tensors lie on the CPU; the kernel itself runs only on a CUDA card:
 those tests carry the `gpu` marker and skip here. On the card the
-kernel is held bit-exactly against the plain version: its distance is
-computed without FMA contraction, in the plain version's order, so no
-tolerance is needed."""
+kernel is held bit-exactly against the plain version: its tensor-core
+filter only chooses which points to re-evaluate, and each re-evaluation
+is the plain version's difference form without FMA contraction, so no
+tolerance is needed. The near-tie cases are those where a filter with
+too small a margin would choose a different winner."""
 import numpy as np
 import pytest
 import torch
@@ -68,3 +70,72 @@ def test_kernel_matches_plain_bit_exactly(cuda_device, N, M, scale):
     K.nn_distance(xk, yt)[0].sum().backward()
     K.nn_distance_ref(xp, yt)[0].sum().backward()
     assert torch.equal(xk.grad, xp.grad)
+
+
+def _sphere(n=4000, r=0.37, seed=17):
+    """Queries with n points at distance ~r around the first, half of
+    them moved by one ulp in one coordinate."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(1, 40, 3) * 0.5).astype(np.float32)
+    u = rng.randn(n, 3)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    y = (x[0, 0] + r * u).astype(np.float32)
+    y[::2, 1] = np.nextafter(y[::2, 1], np.float32(-np.inf))
+    return x, y
+
+
+def _ulp_line(k=40):
+    """A query with points at r, r + 1 ulp, ... on both sides of it:
+    exact ties between mirrored points, near-ties an ulp apart."""
+    x = np.array([[[1.5, -0.75, 2.0]]], np.float32)
+    steps = [np.float32(0.25)]
+    for _ in range(k - 1):
+        steps.append(np.nextafter(steps[-1], np.float32(1.0)))
+    y = []
+    for s in steps[::-1]:
+        y += [x[0, 0] + [s, 0, 0], x[0, 0] - [s, 0, 0]]
+    return x, np.asarray(y, np.float32)
+
+
+def _near_tie_case(name):
+    if name == "sphere, 1 ulp":
+        return _sphere()
+    if name == "equidistant, 1 ulp apart":
+        return _ulp_line()
+    x, y = _clouds(300, 5000, 18)
+    if name == "near +-1000":
+        return x + 1000.0, np.concatenate([y + 1000.0, y - 1000.0])
+    if name == "M not a multiple of the tile":
+        return x, y[:1025]
+    if name == "N = 1":
+        return x[:1, :1], y
+    raise KeyError(name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["sphere, 1 ulp",
+                                  "equidistant, 1 ulp apart",
+                                  "near +-1000",
+                                  "M not a multiple of the tile", "N = 1"])
+def test_kernel_matches_plain_on_near_ties(cuda_device, case):
+    x, y = _near_tie_case(case)
+    xt = torch.as_tensor(x, device=cuda_device)
+    yt = torch.as_tensor(y, device=cuda_device)
+    rechecks = torch.zeros(xt.shape[:-1], dtype=torch.int32,
+                           device=cuda_device)
+    d_k, i_k = K.nn_distance_cuda(xt, yt, rechecks=rechecks)
+    d_p, i_p = K.nn_distance_plain(xt, yt)
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    assert bool((rechecks >= 1).all())        # every winner is re-checked
+    d_n, i_n = K.nn_distance_cuda(xt, yt)     # and the count changes none
+    assert torch.equal(d_n, d_k) and torch.equal(i_n, i_k)
+
+
+@pytest.mark.gpu
+def test_rechecks_must_fit_the_queries(cuda_device):
+    x, y = _clouds(5, 9, 19)
+    with pytest.raises(ValueError):
+        K.nn_distance_cuda(torch.as_tensor(x, device=cuda_device),
+                           torch.as_tensor(y, device=cuda_device),
+                           rechecks=torch.zeros(3, dtype=torch.int32,
+                                                device=cuda_device))
