@@ -43,7 +43,22 @@ Phases, each fatal on failure:
   9. CLI        ``python -m fpv4d_torch.cli.globalopt`` in a subprocess,
                 global mode with --nn-impl brute, on a fixture written
                 from a seed: exits 0 and writes pkls with scale and
-                camera_ext.
+                camera_ext;
+ 10. keypoints  the keypoint fit on the standard model at T=900
+                (``keypoint_problem``, 2 px noise): Adam 120, joint
+                L-BFGS 60 and per-frame L-BFGS 40 steps per stage;
+                frames/s, each stage's first and last loss, MPJPE (mm)
+                against the ground truth; then one batched Adam fit of
+                8 clips x 900 frames, and one fit at T=60 with hand and
+                face keypoints (the landmark path); neither kernel runs;
+ 11. smoother   fit_independent at T=900, fit_sequential and
+                fit_sequential_motion at T=300 (15,000 sequential Adam
+                steps each); seconds;
+ 12. reference  a small Adam keypoint fit and a small fit_sequential on
+                the card against the same on the CPU;
+ 13. pipeline   ``fit`` -> ``smooth`` -> ``globalopt local`` in
+                subprocesses on seeded OpenPose JSONs with hands, each
+                on the card by default: each exits 0 and writes its pkls.
 Every count is set to 0 just before its path runs and read just after.
 The second-to-last lines are a JSON object of kernel results and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Exits
@@ -309,6 +324,332 @@ def _cli_on_card(tmp: Path):
           flush=True)
 
 
+# -- the per-frame stages: keypoint fit and smoother -----------------------------
+
+_STAGES = ("camera", "body", "all")
+
+
+def _kp_truth(model, vp, T: int, dev, seed: int = 1):
+    """Camera-space ground-truth joints [T, 55, 3] of keypoint_problem's
+    target: its first draw is the VPoser latent, at zero betas and
+    orientation, 3 m in front of the camera."""
+    from fpv4d_torch.models import vposer as VP
+    rng = np.random.RandomState(seed)
+    lat = torch.as_tensor(rng.randn(T, 32).astype(np.float32) * 0.3,
+                          device=dev)
+    z = torch.zeros(T, 3, device=dev)
+    with torch.no_grad():
+        out = model(betas=torch.zeros(T, model.num_betas, device=dev),
+                    global_orient=z, body_pose=VP.decode(vp, lat),
+                    vertex_subset=np.zeros(1, np.int32))
+    return out["joints"] + torch.tensor([0.0, 0.0, 3.0], device=dev)
+
+
+def _mpjpe_mm(model, vp, params: np.ndarray, truth, dev) -> np.ndarray:
+    """Per-frame mean distance (mm) of the fitted BODY_25-mapped joints,
+    in camera space, from the ground truth: [T]."""
+    from fpv4d_torch.models import vposer as VP
+    from fpv4d_torch.solve.keypoint_fit import BODY25_FROM_SMPLX
+    sel = np.unique(BODY25_FROM_SMPLX[BODY25_FROM_SMPLX >= 0])
+    p = torch.as_tensor(params, device=dev)
+    with torch.no_grad():
+        out = model(betas=p[:, 6:16], global_orient=p[:, 3:6],
+                    body_pose=VP.decode(vp, p[:, 16:48]),
+                    left_hand_pose=p[:, 48:60],
+                    right_hand_pose=p[:, 60:72],
+                    vertex_subset=np.zeros(1, np.int32))
+    j = out["joints"] + p[:, None, 72:75]
+    err = (j[:, sel] - truth[:, sel]).norm(dim=-1).mean(-1)
+    return err.cpu().numpy() * 1e3
+
+
+def _run_keypoints(label, model, vp, kp, cfg, C, K, **kw):
+    """One fit_keypoints with both counts at 0: finite losses, each
+    stage's last below its first (every clip), no kernel launched.
+    The per-frame L-BFGS's history is the mean over frames of each
+    frame's value, and a frame whose 16 backtracking trials all fail
+    still steps (the reference's bounded search), so a few frames can
+    run away and that mean rises in either package
+    (tests/test_torch_keypoint_fit.py): it is held by its median
+    recovery instead (``_keypoint_phase``). Returns (params, hist,
+    seconds)."""
+    from fpv4d_torch.solve.keypoint_fit import fit_keypoints
+    _reset_counts(C, K)
+    t0 = time.perf_counter()
+    params, hist = fit_keypoints(model, vp, kp, cfg, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    frames = int(np.prod(kp.shape[:-2]))
+    got = (C.launches, K.launches)
+    print(f"[{label}] {cfg.optimizer}, {cfg.num_iter} steps per stage, "
+          f"{frames} frames: {secs:.3f} s, {frames / secs:.1f} frames/s; "
+          f"K1 launches {got[0]}, K2 launches {got[1]} (expected 0, 0)",
+          flush=True)
+    for k in _STAGES:
+        h = np.asarray(hist[k]).reshape(-1, cfg.num_iter)
+        print(f"[{label}] {k}: loss {h[:, 0].mean():.6f} -> "
+              f"{h[:, -1].mean():.6f}"
+              + (f" (mean of {h.shape[0]} clips)" if h.shape[0] > 1
+                 else ""), flush=True)
+        if not np.all(np.isfinite(h)):
+            raise AssertionError(f"{label} {k}: non-finite loss")
+        if cfg.optimizer != "lbfgs_perframe" and not np.all(
+                h[:, -1] < h[:, 0]):
+            raise AssertionError(f"{label} {k}: loss did not decrease")
+    if got != (0, 0):
+        raise AssertionError(f"{label}: a kernel ran off its path {got}")
+    if not np.all(np.isfinite(params)):
+        raise AssertionError(f"{label}: non-finite parameters")
+    return params, hist, secs
+
+
+def _hands_face_fixture(model, vp, T: int, dev, seed: int = 5):
+    """Body, hand and face keypoints [T, ...] projected (1 px noise) from a
+    ground truth with hand poses, jaw pose and expression, as the
+    reference's hand and face tests build them."""
+    from fpv4d_torch.models import vposer as VP
+    from fpv4d_torch.solve import keypoint_fit as KF
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                  device=dev)
+    lmk_vids, tri, bary = model.landmark_vertex_subset()
+    with torch.no_grad():
+        out = model(betas=t(np.zeros((T, 10))),
+                    global_orient=t(rng.randn(T, 3) * 0.1),
+                    body_pose=VP.decode(vp, t(rng.randn(T, 32) * 0.2)),
+                    left_hand_pose=t(rng.randn(T, 12)),
+                    right_hand_pose=t(rng.randn(T, 12)),
+                    jaw_pose=t(rng.randn(T, 3) * 0.2),
+                    expression=t(rng.randn(T, 10) * 2.0),
+                    vertex_subset=lmk_vids)
+    cam = t(np.stack([np.zeros(T), np.zeros(T), 2.5 + 0.2 * rng.rand(T)],
+                     1))[:, None]
+    center = t([640.0, 360.0])
+
+    def proj(pts):
+        p = KF.project(pts + cam, 694.0, center).cpu().numpy()
+        return p + rng.randn(*p.shape).astype(np.float32)
+
+    j = out["joints"]
+    valid = KF.BODY25_FROM_SMPLX >= 0
+    ids = np.where(valid, KF.BODY25_FROM_SMPLX, 0)
+    kp = np.concatenate([proj(j[:, ids]), np.tile(
+        valid.astype(np.float32)[None, :, None], (T, 1, 1))], -1)
+    hands = []
+    for hid in (KF.LHAND_SMPLX, KF.RHAND_SMPLX):
+        h = np.zeros((T, 21, 3), np.float32)
+        h[:, KF._HAND21_SLOTS, :2] = proj(j[:, hid])
+        h[:, KF._HAND21_SLOTS, 2] = 1.0
+        hands.append(h)
+    lmk = torch.einsum("lk,tlkc->tlc", t(bary),
+                       out["vertices"][:, torch.as_tensor(
+                           tri.astype(np.int64), device=dev)])
+    face = np.zeros((T, 70, 3), np.float32)
+    face[:, 17:68, :2] = proj(lmk)
+    face[:, 17:68, 2] = 1.0
+    return kp.astype(np.float32), hands[0], hands[1], face
+
+
+def _keypoint_phase(model, vp, dev, C, K):
+    """Phase 10 on the standard problem's model and VPoser weights.
+    Returns the Adam fit's [900, 75] parameters."""
+    from fpv4d_torch.config import KeypointFitConfig
+    from fpv4d_torch.utils.bench_problem import keypoint_problem
+    T, clips = 900, 8
+    kp, kcfg = keypoint_problem(model, vp, T, num_iter=120)
+    truth = _kp_truth(model, vp, T, dev)
+    adam_params = None
+    for name, iters in (("adam", kcfg.num_iter), ("lbfgs", 60),
+                        ("lbfgs_perframe", 40)):
+        cfg = KeypointFitConfig(num_iter=iters, optimizer=name)
+        params, _, _ = _run_keypoints("keypoints", model, vp, kp, cfg, C, K)
+        err = _mpjpe_mm(model, vp, params, truth, dev)
+        print(f"[keypoints] {name}: MPJPE {err.mean():.3f} mm (median "
+              f"{np.median(err):.3f}, {int((err > 100).sum())} of {T} "
+              f"frames beyond 100 mm)", flush=True)
+        # every frame recovers with Adam and the joint L-BFGS; per frame,
+        # the median (a few frames may run away, see _run_keypoints)
+        held = np.median(err) if name == "lbfgs_perframe" else err.mean()
+        if not held < 100.0:
+            raise AssertionError(f"keypoints {name}: MPJPE {held:.1f} mm")
+        if name == "adam":
+            adam_params = params
+
+    # the fleet shape: 8 clips x 900 frames in one batched fit, the clips
+    # de-correlated by 1 px of noise each
+    kp_b = np.broadcast_to(kp, (clips,) + kp.shape).copy()
+    kp_b[..., :2] += np.random.RandomState(2).randn(
+        *kp_b[..., :2].shape).astype(np.float32)
+    params_b, _, _ = _run_keypoints("keypoints/batched", model, vp, kp_b,
+                                    kcfg, C, K)
+    if params_b.shape != (clips, T, 75):
+        raise AssertionError("batched fit: wrong shape")
+
+    # hands and face at T=60: the landmark path
+    kp60, hl, hr, face = _hands_face_fixture(model, vp, 60, dev)
+    _, hist, _ = _run_keypoints("keypoints/hands+face", model, vp, kp60,
+                                KeypointFitConfig(num_iter=120), C, K,
+                                hand_left=hl, hand_right=hr, face=face)
+    jaw, expr = hist["jaw"], hist["expression"]
+    print(f"[keypoints/hands+face] |jaw| {np.abs(jaw).mean():.4f}, "
+          f"|expression| {np.abs(expr).mean():.4f}", flush=True)
+    if not (np.all(np.isfinite(jaw)) and np.abs(expr).max() > 0):
+        raise AssertionError("face fit: jaw/expression did not move")
+    return adam_params
+
+
+def _frame_diff(x: np.ndarray) -> float:
+    """Mean frame-to-frame change of the betas + pose latent."""
+    return float(np.mean(np.abs(np.diff(x[:, 6:48], axis=0))))
+
+
+def _smoother_phase(body: np.ndarray, dev, C, K):
+    """Phase 11 on the keypoint fit's [900, 75] result: the sequential
+    variants on its first 300 frames, the reference's clip length."""
+    from fpv4d_torch.models import motion_gru
+    from fpv4d_torch.solve import frame_fit
+    T_seq = 300
+    gru = motion_gru.random_params(0, device=dev)
+    runs = (("fit_independent", body, "50 Adam steps, all frames at once",
+             lambda b: frame_fit.fit_independent(b, device=dev)),
+            ("fit_sequential", body[:T_seq],
+             f"{T_seq * 50} sequential Adam steps",
+             lambda b: frame_fit.fit_sequential(b, device=dev)),
+            ("fit_sequential_motion", body[:T_seq],
+             f"{T_seq * 50} sequential Adam steps",
+             lambda b: frame_fit.fit_sequential_motion(b, gru, device=dev)))
+    for name, b, steps, fn in runs:
+        _reset_counts(C, K)
+        t0 = time.perf_counter()
+        out = fn(b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = (C.launches, K.launches)
+        print(f"[smoother] {name}: T={len(b)}, {secs:.3f} s ({steps}), "
+              f"frame diff "
+              f"{_frame_diff(b):.5f} -> {_frame_diff(out):.5f}, max |out - "
+              f"in| {np.abs(out - b).max():.4f}; K1 launches {got[0]}, K2 "
+              f"launches {got[1]} (expected 0, 0)", flush=True)
+        if out.shape != b.shape or not np.all(np.isfinite(out)):
+            raise AssertionError(f"{name}: non-finite or wrong shape")
+        if got != (0, 0):
+            raise AssertionError(f"{name}: a kernel ran off its path {got}")
+        if name == "fit_sequential" and not _frame_diff(out) < _frame_diff(b):
+            raise AssertionError("fit_sequential did not smooth")
+
+
+def _stages_card_vs_cpu(dev):
+    """Phase 12. A small Adam keypoint fit, card against CPU: first loss
+    within 1e-5 relative (the shared initial state), histories within
+    1e-3 (after ~10 steps per stage Adam amplifies the two devices'
+    rounding in near-zero latent gradients). fit_sequential returns no
+    losses, so its results are held: 95% of entries within 1e-4, all
+    within 1e-2, a tenth of lr (its L1 pull toward the previous frame
+    meets zero residuals near its optimum, where last-bit differences
+    choose the sign of a step)."""
+    from fpv4d_torch.config import KeypointFitConfig
+    from fpv4d_torch.models import smplx, vposer
+    from fpv4d_torch.solve import frame_fit
+    from fpv4d_torch.solve.keypoint_fit import fit_keypoints
+    from fpv4d_torch.utils.bench_problem import keypoint_problem
+    res = []
+    for d in (dev, torch.device("cpu")):
+        model = smplx.synthetic_model(num_verts=1024, seed=0,
+                                      sparse_weights=True, device=d)
+        vp = vposer.random_params(0, device=d)
+        kp, cfg = keypoint_problem(model, vp, 24, num_iter=10)
+        res.append(fit_keypoints(model, vp, kp, cfg))
+    (pg, hg), (pc, hc) = res
+    first = abs(hg["camera"][0] - hc["camera"][0]) / abs(hc["camera"][0])
+    print(f"[reference] keypoints camera first loss rel diff cuda vs cpu "
+          f"{first:.3e}", flush=True)
+    if not first <= 1e-5:
+        raise AssertionError("keypoints: cuda and cpu first losses disagree")
+    for k in _STAGES:
+        rel = float(np.max(np.abs(hg[k] - hc[k]) / np.abs(hc[k])))
+        print(f"[reference] keypoints {k}: max rel diff cuda vs cpu "
+              f"{rel:.3e}", flush=True)
+        if not (np.all(np.isfinite(hg[k])) and rel < 1e-3):
+            raise AssertionError(f"keypoints {k}: cuda and cpu disagree")
+    body = pc + np.random.RandomState(3).randn(*pc.shape).astype(
+        np.float32) * 0.05
+    sg = frame_fit.fit_sequential(body, device=dev)
+    sc = frame_fit.fit_sequential(body, device="cpu")
+    err = np.abs(sg - sc)
+    frac = float(np.mean(err <= 1e-4))
+    print(f"[reference] fit_sequential T=24: max abs diff cuda vs cpu "
+          f"{err.max():.3e}, {frac:.4f} of entries within 1e-4", flush=True)
+    if not (np.all(np.isfinite(sg)) and frac >= 0.95 and err.max() <= 1e-2):
+        raise AssertionError("fit_sequential: cuda and cpu disagree")
+
+
+def _pipeline_on_card(tmp: Path):
+    """Phase 13: fit -> smooth -> globalopt local, each a subprocess on
+    the card by default, on 6 frames of seeded OpenPose JSONs with both
+    hands, a 2,500-point scene.ply and a camerapose.txt."""
+    from fpv4d_torch.io import body_pkl
+    from fpv4d_torch.io.ply import write_ply
+    rng = np.random.RandomState(4)
+    T = 6
+    kp_dir = tmp / "keypoints"
+    kp_dir.mkdir()
+    k, h = np.arange(25), np.arange(21)
+    for t in range(T):
+        body = np.stack([640 + 30 * np.cos(k) + 2 * t,
+                         360 + 40 * np.sin(k) + t, np.ones(25)], 1)
+        hl = np.stack([600 + 10 * np.cos(h) + t, 300 + 8 * np.sin(h),
+                       np.full(21, 0.9)], 1)
+        hr = np.stack([680 + 10 * np.sin(h), 300 + 8 * np.cos(h) + t,
+                       np.full(21, 0.8)], 1)
+        with open(kp_dir / f"{t:06d}_keypoints.json", "w") as f:
+            json.dump({"people": [{
+                "pose_keypoints_2d": body.ravel().tolist(),
+                "hand_left_keypoints_2d": hl.ravel().tolist(),
+                "hand_right_keypoints_2d": hr.ravel().tolist()}]}, f)
+    g = np.linspace(-3, 3, 50)
+    xs, zs = np.meshgrid(g, g)
+    write_ply(str(tmp / "scene.ply"), np.stack(
+        [xs.ravel(), -1.0 + 0.03 * rng.randn(xs.size), zs.ravel()],
+        1).astype(np.float32))
+    with open(tmp / "camerapose.txt", "w") as f:
+        for t in range(T):
+            f.write(f"{t:06d}.jpg 1 0 0 0 0.1 0.0 {0.5 + 0.1 * t}\n")
+    assets = ["--model", "NONE", "--vposer", "NONE"]
+    steps = (
+        ("fit", [str(kp_dir), str(tmp / "body_gen"), "--iters", "30"]
+         + assets, tmp / "body_gen"),
+        ("smooth", [str(tmp / "body_gen"), str(tmp), "--iters", "10"],
+         tmp / "smoothed_body"),
+        ("globalopt", [str(tmp / "smoothed_body"), str(tmp / "fit_out"),
+                       "local", "--scene", str(tmp / "scene.ply"),
+                       "--camera", str(tmp / "camerapose.txt"),
+                       "--iters", "10"] + assets, tmp / "fit_out"),
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for name, args, out_dir in steps:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", f"fpv4d_torch.cli.{name}"] + args,
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        for line in (res.stdout + res.stderr).splitlines()[-6:]:
+            print(f"[pipeline] {name} | {line}")
+        if res.returncode != 0:
+            raise AssertionError(f"{name} exited {res.returncode}")
+        frames = [body_pkl.load_frame(str(p))
+                  for p in sorted(out_dir.glob("*.pkl"))]
+        if len(frames) != T or not all(
+                np.all(np.isfinite(np.asarray(v, np.float32)))
+                for d in frames for v in d.values()):
+            raise AssertionError(f"{name} wrote no complete pkls")
+        if name == "globalopt" and not all(
+                "scale" in d and "camera_ext" in d for d in frames):
+            raise AssertionError("globalopt pkls lack scale/camera_ext")
+        print(f"[pipeline] {name} exit 0 in {secs:.2f} s; {len(frames)} "
+              f"pkls in {out_dir.name}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -479,6 +820,17 @@ def main() -> int:
     # 9. the CLI on the card
     with tempfile.TemporaryDirectory() as tmp:
         _cli_on_card(Path(tmp))
+
+    # 10-11. the keypoint fit and the smoother at full width
+    body_fit = _keypoint_phase(prob.model, prob.vp, dev, C, K)
+    _smoother_phase(body_fit, dev, C, K)
+
+    # 12. the same small stages on the card and on the CPU
+    _stages_card_vs_cpu(dev)
+
+    # 13. fit -> smooth -> globalopt on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        _pipeline_on_card(Path(tmp))
 
     ms, plain_ms, lib_ms, bound_ms, bound_by = timings[192]
     print(json.dumps({"kernels": [

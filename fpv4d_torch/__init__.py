@@ -12,8 +12,10 @@ float32 product on the card runs in full float32, as the reference's
 tests run JAX at the highest matmul precision.
 
 Entry points (``solve.clip_solve.ClipSolver``,
-``utils.bench_problem.standard_problem``) take ``device=`` and default
+``utils.bench_problem.standard_problem``, the smoother's
+``solve.frame_fit`` functions and the CLIs) take ``device=`` and default
 to ``"cuda"``; the CPU is used only when the caller asks for it.
+``solve.keypoint_fit.fit_keypoints`` runs on its model's device.
 
 Hand-written kernels live in ``csrc/`` and are built with nvcc at
 first use into ``fpv4d_torch/_build/`` (see ``ops/cand_cuda.py``).

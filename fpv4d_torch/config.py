@@ -1,5 +1,6 @@
-"""Configuration dataclasses of the clip solve (port of
-fpv4d/config.py:11-99, same fields and defaults)."""
+"""Configuration dataclasses (port of fpv4d/config.py, same fields and
+defaults): the clip solve, the per-frame smoother and the keypoint
+fit."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -58,3 +59,41 @@ class ClipConfig:
             raise ValueError(
                 f"cand_impl={self.cand_impl!r}: the port implements only "
                 "'auto' (CUDA kernel on the card, plain version on the CPU)")
+
+
+@dataclass(frozen=True)
+class FrameFitConfig:
+    """Per-frame sequential smoothing (optimization.py:304-327)."""
+    num_iter: int = 50
+    lr: float = 0.1
+    smooth_mult: float = 5.0
+    weights: LossWeights = field(default_factory=LossWeights)
+    contact_parts: Tuple[str, ...] = (
+        "back", "butt", "L_Hand", "R_Hand", "L_Leg", "R_Leg", "thighs")
+
+
+@dataclass(frozen=True)
+class KeypointFitConfig:
+    """SMPLify-X-style fit from 2D keypoints (pipeline step 3; focal
+    length 694 as the reference's README gives it)."""
+    focal_length: float = 694.0
+    image_size: Tuple[int, int] = (1280, 720)
+    num_iter: int = 120
+    lr: float = 0.02
+    stages: int = 3
+    weight_reproj: float = 1.0
+    weight_vposer: float = 0.05
+    weight_shape: float = 0.01
+    weight_hand: float = 0.01
+    weight_expr: float = 0.01
+    weight_jaw: float = 0.1
+    gmof_rho: float = 100.0
+    # 'adam' (staged Adam, the default), 'lbfgs' (one L-BFGS memory and
+    # zoom line search over the whole clip's objective) or
+    # 'lbfgs_perframe' (an L-BFGS memory and bounded backtracking line
+    # search per frame, the frames batched)
+    optimizer: str = "adam"
+    # kept so the signature matches the reference, whose guard against
+    # 'lbfgs_perframe' fires only on a TPU; the port never raises on it
+    allow_slow_perframe: bool = False
+    lbfgs_memory: int = 8

@@ -33,6 +33,15 @@ def vposer_from_numpy(params: Mapping[str, np.ndarray],
             for k, v in params.items()}
 
 
+def gru_from_numpy(params: Mapping[str, np.ndarray],
+                   device="cpu") -> Dict[str, torch.Tensor]:
+    """The reference's GRU motion-prior dict (models/motion_gru.py: per
+    gate [in, out] weights, the n gate's b_hn apart) -> the port's, key
+    for key."""
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in params.items()}
+
+
 def voxel_grid_from_numpy(cand_pts: np.ndarray, cand_idx: np.ndarray,
                           origin: np.ndarray, dims: Sequence[int],
                           h: float, device="cpu") -> VoxelGrid:

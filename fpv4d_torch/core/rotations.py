@@ -7,7 +7,8 @@ Conventions match the reference exactly:
   * ``matrot_to_aa`` goes through a quaternion.
 Singular configurations use the double-``where`` pattern: the
 denominator is made safe in the unselected branch too, so gradients
-stay finite at zero angle.
+stay finite at zero angle. Clamps are torch.maximum/minimum, whose
+gradient at a tie is JAX's (split evenly).
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ def matrot_to_quat(R: torch.Tensor) -> torch.Tensor:
     tr = m00 + m11 + m22
 
     def cand(t, a, b, c, d):
-        s = torch.sqrt(torch.clamp(t, min=_EPS)) * 2.0
+        s = torch.sqrt(torch.maximum(t, t.new_tensor(_EPS))) * 2.0
         return torch.stack([a / s, b / s, c / s, d / s], dim=-1), s
 
     q0, s0 = cand(1.0 + tr, (1.0 + tr), m21 - m12, m02 - m20, m10 - m01)
@@ -68,8 +69,12 @@ def matrot_to_quat(R: torch.Tensor) -> torch.Tensor:
 
 def quat_to_aa(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion [..., 4] (w,x,y,z) -> axis-angle [..., 3],
-    grad-safe at the identity."""
-    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    grad-safe at the identity. w is clipped as jnp.clip does, by a
+    maximum and a minimum, which split the gradient evenly where w is
+    exactly +-1 (a rotation within ~5e-4 rad of the identity rounds
+    there); torch.clamp would pass all of it."""
+    one = q.new_tensor(1.0)
+    w = torch.minimum(torch.maximum(q[..., 0], -one), one)
     v = q[..., 1:]
     v2 = torch.sum(v * v, dim=-1)
     small = v2 < 1e-12

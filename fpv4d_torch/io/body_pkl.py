@@ -1,12 +1,13 @@
-"""Per-frame body-parameter pkl contract (port of the clip-solve parts
-of fpv4d/io/body_pkl.py).
+"""Per-frame body-parameter pkl contract (port of fpv4d/io/body_pkl.py
+but the SMPLify-X results flattener).
 
 Stage handoffs are directories of per-frame pickles: SMPLify-X outputs
 under ``body_gen/results/*/*.pkl`` (or a flat directory of pkls) in,
 ``<fit_path>/body_gen_%06d.pkl`` out. Each dict holds [1, k] float
 arrays keyed transl / global_orient / betas / body_pose /
 left_hand_pose / right_hand_pose / camera_translation, plus, for
-clip-solve outputs, the scalar 'scale' and the [4, 4] 'camera_ext'.
+clip-solve outputs, the scalar 'scale' and the [4, 4] 'camera_ext';
+keypoint-fit outputs with face keypoints add jaw_pose / expression.
 Unpickling runs code: read only pkls this pipeline wrote.
 """
 from __future__ import annotations
@@ -53,12 +54,24 @@ def load_clip(body_path: str) -> np.ndarray:
 def save_clip(fit_path: str, body_75: np.ndarray,
               scale: Optional[float] = None,
               camera_ext: Optional[np.ndarray] = None,
-              prefix: str = "body_gen_") -> List[str]:
+              prefix: str = "body_gen_",
+              extra: Optional[Dict[str, np.ndarray]] = None) -> List[str]:
     """[T, 75] (+ scale / camera_ext) -> per-frame pkls
-    ``<fit_path>/<prefix>%06d.pkl``; returns their paths."""
+    ``<fit_path>/<prefix>%06d.pkl``; returns their paths. extra: [T, ...]
+    arrays stored per frame under their own keys (the keypoint fit's
+    jaw_pose and expression)."""
+    os.makedirs(fit_path, exist_ok=True)
     paths = []
     for i, d in enumerate(P.encapsulate_frames(body_75, scale, camera_ext)):
+        if extra:
+            d = dict(d, **{k: np.asarray(v[i]) for k, v in extra.items()})
         path = os.path.join(fit_path, f"{prefix}{i:06d}.pkl")
         save_frame(path, d)
         paths.append(path)
     return paths
+
+
+def save_smoothed(fit_path: str, body_75: np.ndarray) -> List[str]:
+    """The smoother's layout: ``<fit_path>/smoothed_body/%06d.pkl``."""
+    return save_clip(os.path.join(fit_path, "smoothed_body"), body_75,
+                     prefix="")

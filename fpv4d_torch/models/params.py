@@ -34,6 +34,9 @@ SLICES_6D = {
 }
 VPOSER_SLICE = (16, 48)
 VPOSER_SLICE_6D = (19, 51)
+# betas + pose latent in the 78-d layout: the smoother's L1 pull toward
+# the previous frame reads this slice
+SMOOTH_SLICE_6D = (9, 51)
 
 
 def split_6d(x: torch.Tensor) -> Dict[str, torch.Tensor]:

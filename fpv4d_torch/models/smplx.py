@@ -86,6 +86,19 @@ class SmplxModel(nn.Module):
     def num_pca(self) -> int:
         return self.hands_components_l.shape[0]
 
+    def landmark_vertex_subset(self):
+        """Static (vertex_subset, tri_local [L,3], bary [L,3]) for
+        computing the face landmarks from a subset-skinned mesh:
+        landmarks = sum_k bary[:, k] * verts[:, tri_local[:, k]]; None
+        when the model has no landmark embedding."""
+        if self.lmk_faces_idx is None:
+            return None
+        tris = self.faces[np.asarray(self.lmk_faces_idx)]     # [L, 3]
+        vids = np.unique(tris.ravel()).astype(np.int32)
+        tri_local = np.searchsorted(vids, tris).astype(np.int32)
+        return vids, tri_local, np.asarray(self.lmk_bary_coords,
+                                           np.float32)
+
     # -- static joint-support analysis (host numpy) --------------------------
     def joint_support(self, vertex_subset
                       ) -> Optional[Tuple[np.ndarray, np.ndarray]]:

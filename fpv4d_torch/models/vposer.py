@@ -11,7 +11,6 @@ from typing import Dict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from fpv4d_torch.core.rotations import rot6d_to_aa, rot6d_to_matrot
 
@@ -60,12 +59,20 @@ def params_from_torch_state_dict(sd, device="cpu"
     }
 
 
+def _leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """leaky ReLU with the reference's derivative at 0: JAX's
+    where(x >= 0, x, slope*x) has slope 1 there, F.leaky_relu's
+    backward the negative slope. A zero latent over zero biases (the
+    keypoint fit's start) puts every hidden unit exactly at 0."""
+    return torch.where(x >= 0, x, slope * x)
+
+
 def decode(params: Dict[str, torch.Tensor], latent: torch.Tensor,
            output_type: str = "aa") -> torch.Tensor:
     """latent [..., 32] -> body pose: 'aa' [..., 63] or 'matrot'
     [..., 21, 3, 3]."""
-    h = F.leaky_relu(latent @ params["w1"] + params["b1"], 0.2)
-    h = F.leaky_relu(h @ params["w2"] + params["b2"], 0.2)
+    h = _leaky_relu(latent @ params["w1"] + params["b1"], 0.2)
+    h = _leaky_relu(h @ params["w2"] + params["b2"], 0.2)
     r6 = h @ params["w3"] + params["b3"]
     r6 = r6.reshape(r6.shape[:-1] + (NUM_JOINTS, 6))
     if output_type == "matrot":

@@ -2,7 +2,8 @@
 production-shaped synthetic clip solve — 900 frames, a 10,475-vertex
 SMPL-X stand-in with sparse skinning weights, ~870 leg contact vertices
 and a 100,489-point floor scene — with the reference's shapes, seeds
-and defaults (contact_compact=192, skate_subset=1024 body-only).
+and defaults (contact_compact=192, skate_subset=1024 body-only); and
+the keypoint-fit target (``keypoint_problem``, port of :81).
 
 The model comes from the port's own ``synthetic_model`` (pure numpy,
 bit-identical to the reference's arrays for the same seed); it is
@@ -16,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fpv4d_torch.config import ClipConfig
+from fpv4d_torch.config import ClipConfig, KeypointFitConfig
 from fpv4d_torch.models import smplx, vposer
 from fpv4d_torch.ops import contact
 from fpv4d_torch.solve.clip_solve import ClipSolver
@@ -86,3 +87,38 @@ def standard_problem(T: int = 900, num_verts: int = 10475,
 
     return StandardProblem(model=model, vp=vp, solver=solver,
                            body=body, cam=cam, scene=scene)
+
+
+def keypoint_problem(model: smplx.SmplxModel, vp: dict, T: int,
+                     num_iter: int = 120, noise_px: float = 2.0,
+                     seed: int = 1):
+    """The keypoint-fit target: VPoser-decoded ground-truth poses at
+    z = 3 m, projected to BODY_25 pixels with `noise_px` pixel noise;
+    the reference's seed and draws, so the target is the reference's.
+    Returns (kp [T, 25, 3] float32 numpy, KeypointFitConfig)."""
+    from fpv4d_torch.solve.keypoint_fit import BODY25_FROM_SMPLX, project
+    kcfg = KeypointFitConfig(num_iter=num_iter)
+    rng = np.random.RandomState(seed)
+    valid = BODY25_FROM_SMPLX >= 0
+    ids = np.where(valid, BODY25_FROM_SMPLX, 0)
+    dev = model.v_template.device
+    lat = torch.as_tensor(rng.randn(T, 32).astype(np.float32) * 0.3,
+                          device=dev)
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
+                                   device=dev)
+    with torch.no_grad():
+        out_gt = model(betas=zeros(T, model.num_betas),
+                       global_orient=zeros(T, 3),
+                       body_pose=vposer.decode(vp, lat),
+                       vertex_subset=np.zeros(1, np.int32))
+        j_cam = out_gt["joints"][:, torch.as_tensor(
+            ids.astype(np.int64), device=dev)] + torch.tensor(
+                [0.0, 0.0, 3.0], device=dev)
+        center = torch.tensor([kcfg.image_size[0] / 2,
+                               kcfg.image_size[1] / 2], device=dev)
+        j2d = project(j_cam, kcfg.focal_length, center).cpu().numpy()
+    kp = np.concatenate(
+        [j2d + rng.randn(*j2d.shape).astype(np.float32) * noise_px,
+         np.tile(valid.astype(np.float32)[None, :, None], (T, 1, 1))],
+        -1).astype(np.float32)
+    return kp, kcfg

@@ -5,7 +5,11 @@ tests/test_cli.py (3 frames, the 10,475-vertex synthetic stand-in, a
 
 The port's CLI runs with ``--device cpu --nn-impl brute`` (K2's plain
 version) and the reference's with ``--nn-impl xla`` (its exact brute
-force off the TPU). Tolerances: the written body parameters within
+force off the TPU). The fit and smooth CLIs run on the verify recipe's
+keypoint fixture (4 frames of OpenPose JSON, here with both hands),
+fit at 10 steps per stage (tests/test_torch_keypoint_fit.py says why
+longer Adam runs part ways): body parameters within 1e-4 (measured
+1.6e-5), smoothed pkls within 1e-5 (measured 3.6e-6). Tolerances: the written body parameters within
 2*lr (the L1 reconstruction and smoothness terms start at exact zeros,
 where last-bit differences steer single Adam steps by +-lr) with 99%
 of entries within 1e-4; scale within 1e-5 and camera_ext within 1e-6
@@ -105,6 +109,85 @@ def test_globalopt_sdf_and_checkpoints(clip_dir, tmp_path):
     assert sorted(os.listdir(tmp_path / "ckpt")) == ["dct_a.pt", "dct_b.pt"]
     frames = _frames(tmp_path / "fit")
     assert len(frames) == 3 and all(np.isfinite(f["scale"]) for f in frames)
+
+
+@pytest.fixture(scope="module")
+def kp_dir(tmp_path_factory):
+    """The verify recipe's OpenPose JSONs (4 frames), with both hands."""
+    d = tmp_path_factory.mktemp("kp") / "keypoints"
+    d.mkdir()
+    for t in range(4):
+        k = np.arange(25)
+        body = np.stack([640 + 30 * np.cos(k) + 2 * t,
+                         360 + 40 * np.sin(k) + t, np.ones(25)], 1)
+        h = np.arange(21)
+        hl = np.stack([600 + 10 * np.cos(h) + t, 300 + 8 * np.sin(h),
+                       np.full(21, 0.9)], 1)
+        hr = np.stack([680 + 10 * np.sin(h), 300 + 8 * np.cos(h) + t,
+                       np.full(21, 0.8)], 1)
+        person = {"pose_keypoints_2d": body.ravel().tolist(),
+                  "hand_left_keypoints_2d": hl.ravel().tolist(),
+                  "hand_right_keypoints_2d": hr.ravel().tolist()}
+        with open(d / f"{t:06d}_keypoints.json", "w") as f:
+            json.dump({"people": [person]}, f)
+    return d
+
+
+def _assert_same_pkls(t_dir, j_dir, atol):
+    tf, jf = _frames(t_dir), _frames(j_dir)
+    assert len(tf) == len(jf) == 4
+    assert [p.name for p in sorted(t_dir.glob("*.pkl"))] == \
+        [p.name for p in sorted(j_dir.glob("*.pkl"))]
+    for a, b in zip(tf, jf):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].shape == b[k].shape, k
+            np.testing.assert_allclose(a[k], b[k], atol=atol, rtol=0,
+                                       err_msg=k)
+
+
+def test_fit_and_smooth_match_reference(kp_dir, tmp_path):
+    from fpv4d.cli.fit import main as jfit
+    from fpv4d.cli.smooth import main as jsmooth
+    from fpv4d_torch.cli.fit import main as tfit
+    from fpv4d_torch.cli.smooth import main as tsmooth
+    assets = ["--model", "NONE", "--vposer", "NONE"]
+    assert jfit([str(kp_dir), str(tmp_path / "j_gen"), "--iters", "10"]
+                + assets) == 0
+    assert tfit([str(kp_dir), str(tmp_path / "t_gen"), "--iters", "10",
+                 "--device", "cpu"] + assets) == 0
+    _assert_same_pkls(tmp_path / "t_gen", tmp_path / "j_gen", 1e-4)
+    for mode in ("sequential", "independent", "motion"):
+        gen = str(tmp_path / "j_gen")
+        assert jsmooth([gen, str(tmp_path / f"j_{mode}"), "--iters", "10",
+                        "--mode", mode]) == 0
+        assert tsmooth([gen, str(tmp_path / f"t_{mode}"), "--iters", "10",
+                        "--mode", mode, "--device", "cpu"]) == 0
+        _assert_same_pkls(tmp_path / f"t_{mode}" / "smoothed_body",
+                          tmp_path / f"j_{mode}" / "smoothed_body", 1e-5)
+
+
+@pytest.mark.parametrize("cli", ["fit", "smooth"])
+def test_fit_and_smooth_default_device_needs_a_card(kp_dir, tmp_path, cli,
+                                                    capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device would run")
+    from fpv4d_torch.cli import fit, smooth
+    main = fit.main if cli == "fit" else smooth.main
+    assert main([str(kp_dir), str(tmp_path / "x")]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not (tmp_path / "x").exists()
+
+
+def test_fit_and_smooth_empty_inputs(tmp_path):
+    """No keypoint JSONs: fit exits 1; no body pkls: smooth raises."""
+    from fpv4d_torch.cli import fit, smooth
+    (tmp_path / "empty").mkdir()
+    assert fit.main([str(tmp_path / "empty"), str(tmp_path / "o"),
+                     "--device", "cpu"]) == 1
+    with pytest.raises(FileNotFoundError):
+        smooth.main([str(tmp_path / "empty"), str(tmp_path / "o"),
+                     "--device", "cpu"])
 
 
 def test_bad_mode_exits_2(clip_dir, tmp_path):

@@ -23,8 +23,18 @@ for name in names:
 leaked = sorted(n for n, m in sys.modules.items()
                 if m is not None and n.split(".")[0] in blocked)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
+
+# the modules of each slice, so a module that stopped being walked (or
+# was never added) fails here rather than passing unchecked
+_EXPECTED = (
+    "fpv4d_torch.solve.clip_solve", "fpv4d_torch.ops.cand_cuda",
+    "fpv4d_torch.ops.chamfer_cuda", "fpv4d_torch.cli.globalopt",
+    "fpv4d_torch.io.keypoints", "fpv4d_torch.models.motion_gru",
+    "fpv4d_torch.solve.lbfgs", "fpv4d_torch.solve.keypoint_fit",
+    "fpv4d_torch.solve.frame_fit", "fpv4d_torch.cli.fit",
+    "fpv4d_torch.cli.smooth")
 
 
 def test_every_port_module_imports_without_jax_or_fpv4d():
@@ -33,5 +43,7 @@ def test_every_port_module_imports_without_jax_or_fpv4d():
         [sys.executable, "-c", _PROBE.format(blocked=_BLOCKED)], cwd=root,
         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    # every subpackage's modules were walked, the CLI and io included
-    assert int(res.stdout.strip().splitlines()[-1]) >= 30
+    # every subpackage's modules were walked, the CLIs and io included
+    names = res.stdout.strip().splitlines()[-1].split()
+    assert len(names) >= 36
+    assert set(_EXPECTED) <= set(names), set(_EXPECTED) - set(names)
