@@ -58,7 +58,37 @@ Phases, each fatal on failure:
                 the card against the same on the CPU;
  13. pipeline   ``fit`` -> ``smooth`` -> ``globalopt local`` in
                 subprocesses on seeded OpenPose JSONs with hands, each
-                on the card by default: each exits 0 and writes its pkls.
+                on the card by default: each exits 0 and writes its pkls;
+ 14. fleet NN   both kernels at the multi-clip fleet's shapes: K1
+                bit-exact on the folded tables of an 8-clip first
+                refresh [7200, 813, 192] and on 70,000 frames (more than
+                a grid's y axis takes); K2 over a clip axis, the
+                standard scene and that scene shifted by (0.5, 0, 0.25)
+                m and cut to 80,000 points, padded by pad_scenes,
+                queries [2, 900, 813]: bit-exact against the plain
+                version and each clip against its own [M, 3] launch;
+                ms per launch beside twice the single-cloud launch, the
+                bound and cdist+min;
+ 15. fleet      MultiClipSolver.fit, local/grid, 8 clips x 900 frames
+                (fleet_batch): seconds per stage (fenced), clips per
+                hour, per-clip seconds over phase 5's single solve,
+                peak memory; K1 launched once per local_a step; clip
+                0's histories held to phase 5's as _card_vs_cpu holds
+                them; each clip's losses finite and decreasing per
+                phase; a second fit with skate_clip_chunk=0 (one grid
+                cache hit), its skate time and histories beside the
+                chunked run's;
+ 16. fleet      global with brute force, 2 clips: K2 once per global_a
+                step (one launch over both clips' scenes);
+ 17. fleet      dct with the grid, 8 clips at full length: K1 once per
+                dct_b step;
+ 18. reference  a small fleet (2 clips x 12 frames, local/grid and
+                global/brute) on the card against the same on the CPU;
+ 19. multiopt   ``python -m fpv4d_torch.cli.multiopt`` in a subprocess on
+                two clip directories, then again in a one-rank NCCL
+                process group (FPV4D_DISTRIBUTED=1, RANK=0,
+                WORLD_SIZE=1): both exit 0, the second's pkls equal to
+                the first's.
 Every count is set to 0 just before its path runs and read just after.
 The second-to-last lines are a JSON object of kernel results and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Exits
@@ -123,10 +153,13 @@ def _k1_bound_ms(T: int, N: int, P: int):
     return _bound_ms(nbytes, float(T * N * P))
 
 
-def _k2_bound_ms(Q: int, M: int):
+def _k2_bound_ms(Q: int, M: int, clips: int = 1):
     """Least time for K2's work, counted as for K1: x and y read once,
-    dist and idx written once, one instruction per (query, point)."""
-    return _bound_ms(Q * 3 * 4 + M * 3 * 4 + Q * 4 + Q * 4, float(Q * M))
+    dist and idx written once, one instruction per (query, point); with
+    a clip axis, each of `clips` clips has Q queries and an M-point
+    cloud (padding included: the function searches it)."""
+    return _bound_ms(clips * (Q * 3 * 4 + M * 3 * 4 + Q * 4 + Q * 4),
+                     float(clips * Q * M))
 
 
 def _rechecks(label, fn, shape, dev):
@@ -187,9 +220,10 @@ def _check_k2(K, x, y, label):
         grads.append((xg.grad, yg.grad))
     (dx_k, dy_k), (dx_p, dy_p) = grads
     ok = ok and torch.equal(dx_k, dx_p)
-    n = torch.bincount(i_p.reshape(-1).long(), minlength=y.shape[0])
+    n = torch.bincount(K._flat_rows(y, i_p).reshape(-1),
+                       minlength=y.numel() // 3).reshape(y.shape[:-1])
     abs_sum = K.scatter_to_cloud(y, i_p, dx_p.abs())
-    bound = 2.0 * (n - 1).clamp(min=0)[:, None] * 2.0 ** -24 * abs_sum
+    bound = 2.0 * (n - 1).clamp(min=0)[..., None] * 2.0 ** -24 * abs_sum
     dy_err = float((dy_k - dy_p).abs().max())
     ok = ok and bool(((dy_k - dy_p).abs() <= bound).all())
     print(f"[K2] {label}: x {tuple(x.shape)} y {tuple(y.shape)} "
@@ -221,7 +255,7 @@ def _reset_counts(C, K):
 def _run_fit(solver, prob, mode, C, K, expect, label):
     """Drive fit(mode) with both counts at 0; check finite, decreasing
     per-phase losses and the launches of each kernel. Returns
-    (K1 launches, K2 launches, fit seconds)."""
+    (K1 launches, K2 launches, fit seconds, loss histories)."""
     _reset_counts(C, K)
     t0 = time.perf_counter()
     final, hist = solver.fit(prob.body, prob.cam, mode=mode)
@@ -249,35 +283,42 @@ def _run_fit(solver, prob, mode, C, K, expect, label):
             and np.all(np.isfinite(cam))):
         raise AssertionError(f"{label}: final parameters not finite / "
                              "wrong shape")
-    return got[0], got[1], fit_s
+    return got[0], got[1], fit_s, hist
 
 
-def _card_vs_cpu(standard_problem, dev, mode, nn_impl):
-    """A small solve on the card against the same solve on the CPU. The
-    first loss is taken at the shared initial state: 1e-5 relative (f32
+def _hold_histories(hg, hc, label, what="cuda vs cpu"):
+    """Histories hg against hc (per clip where they are [steps, C]): the
+    first loss is taken at the shared initial state, 1e-5 relative (f32
     summation order); later losses 2e-2, because the L1 smoothness terms
     turn last-bit differences of near-zero second differences into
     +-lr Adam steps."""
-    small = dict(T=24, num_verts=1024, scene_pts=2500, num_iter=20,
-                 num_iter_dct=40, nn_impl=nn_impl)
+    if hg.keys() != hc.keys():
+        raise AssertionError(f"{label}: phases {list(hg)} vs {list(hc)}")
+    k0 = next(iter(hc))
+    first = float(np.max(np.abs(hg[k0][0] - hc[k0][0]) / np.abs(hc[k0][0])))
+    print(f"[reference] {label} {k0} first loss rel diff {what} "
+          f"{first:.3e}")
+    if not first <= 1e-5:
+        raise AssertionError(f"{label}: first losses disagree ({what})")
+    for k in hc:
+        rel = float(np.max(np.abs(hg[k] - hc[k]) / np.abs(hc[k])))
+        print(f"[reference] {label} {k}: max rel diff {what} {rel:.3e}",
+              flush=True)
+        if not (np.all(np.isfinite(hg[k])) and rel < 2e-2):
+            raise AssertionError(f"{label} {k}: histories disagree ({what})")
+
+
+_SMALL = dict(num_verts=1024, scene_pts=2500, num_iter=20, num_iter_dct=40)
+
+
+def _card_vs_cpu(standard_problem, dev, mode, nn_impl):
+    """A small solve on the card against the same solve on the CPU."""
+    small = dict(_SMALL, T=24, nn_impl=nn_impl)
     h_gpu = standard_problem(device=dev, **small)
     h_cpu = standard_problem(device="cpu", **small)
     _, hg = h_gpu.solver.fit(h_gpu.body, h_gpu.cam, mode=mode)
     _, hc = h_cpu.solver.fit(h_cpu.body, h_cpu.cam, mode=mode)
-    k0 = next(iter(hc))
-    first = abs(hg[k0][0] - hc[k0][0]) / abs(hc[k0][0])
-    print(f"[reference] {mode}/{nn_impl} {k0} first loss rel diff cuda vs "
-          f"cpu {first:.3e}")
-    if not first <= 1e-5:
-        raise AssertionError(f"{mode}/{nn_impl}: cuda and cpu first "
-                             "losses disagree")
-    for k in hc:
-        rel = float(np.max(np.abs(hg[k] - hc[k]) / np.abs(hc[k])))
-        print(f"[reference] {mode}/{nn_impl} {k}: max rel diff cuda vs "
-              f"cpu {rel:.3e}", flush=True)
-        if not (np.all(np.isfinite(hg[k])) and rel < 2e-2):
-            raise AssertionError(f"{mode}/{nn_impl} {k}: cuda and cpu "
-                                 "solves disagree")
+    _hold_histories(hg, hc, f"{mode}/{nn_impl}")
 
 
 def _cli_on_card(tmp: Path):
@@ -649,6 +690,279 @@ def _pipeline_on_card(tmp: Path):
         print(f"[pipeline] {name} exit 0 in {secs:.2f} s; {len(frames)} "
               f"pkls in {out_dir.name}", flush=True)
 
+# -- the multi-clip fleet ----------------------------------------------------------
+
+def _fleet_kernels(C, K, solver, prob, dev):
+    """Phase 14: both kernels at the fleet's shapes. Returns the kernel
+    line's measurements of K1 on the folded C=8 tables and of K2 over a
+    clip axis."""
+    from fpv4d_torch.ops import nn as NN
+    from fpv4d_torch.parallel import sharding as SH
+    from fpv4d_torch.parallel.multi_clip import MultiClipSolver, pad_scenes
+    from fpv4d_torch.solve.clip_solve import forward_world
+    from fpv4d_torch.utils.bench_problem import fleet_batch
+    clips = 8
+    bodies, cams, _ = fleet_batch(prob, clips)
+    state_b, _, _ = MultiClipSolver(solver=solver).init_batch(bodies, cams)
+    # the fleet's scenes are the standard scene C times, whose batched
+    # grid is the solver's own grid on each clip (build_voxel_grid_batch
+    # of C equal scenes)
+    g = solver.grid
+    grid_b = NN.VoxelGrid(
+        cand_pts=g.cand_pts.expand((clips,) + g.cand_pts.shape),
+        cand_idx=g.cand_idx.expand((clips,) + g.cand_idx.shape),
+        origin=g.origin.expand(clips, 3), dims=g.dims, h=g.h)
+    fc = SH.refresh_cands(solver, state_b, grid_b)
+    with torch.no_grad():
+        q, _, _ = forward_world(solver.ctx, SH.flatten_state(state_b),
+                                vertex_subset=solver.contact_vids,
+                                prune=solver._contact_prune,
+                                with_joints=False)
+    del state_b
+    k1_err = _check_k1(C, q, fc.cand, fc.valid,
+                       f"fleet: {clips} clips folded, first refresh")
+    T, N, P = fc.cand.shape[0], q.shape[1], fc.cand.shape[1]
+    ms = _median_ms(lambda: C.cand_nn_cuda(q, fc.cand, fc.valid))
+    plain_ms = _median_ms(lambda: C.cand_nn_plain(q, fc.cand, fc.valid),
+                          reps=5, warmup=1)
+    lib_ms = _median_ms(lambda: torch.cdist(q, fc.cand).min(-1), reps=5,
+                        warmup=1)
+    bound_ms, bound_by = _k1_bound_ms(T, N, P)
+    print(f"[K1] fleet [{T}, {N}, {P}]: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, cdist+min {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of the "
+          "bound", flush=True)
+    k1 = (k1_err, ms, plain_ms, lib_ms, bound_ms, bound_by)
+
+    # more frames than a grid's y axis takes, at a small N
+    F = 70_000
+    rep = -(-F // T)
+    q70 = q[:, :32].repeat(rep, 1, 1)[:F].contiguous()
+    _check_k1(C, q70, fc.cand.repeat(rep, 1, 1)[:F].contiguous(),
+              fc.valid.repeat(rep, 1)[:F].contiguous(),
+              f"{F} frames (beyond 65,535)")
+    del q70, fc
+    torch.cuda.empty_cache()
+
+    # K2 over a clip axis: the standard scene, and the scene shifted by
+    # (0.5, 0, 0.25) m and cut to its first 80,000 points, padded
+    scene = prob.scene
+    shifted = scene[:80_000] + np.float32([0.5, 0.0, 0.25])
+    y = torch.as_tensor(pad_scenes([scene, shifted]), device=dev)
+    x = q[:prob.body.shape[0]]
+    x = torch.stack([x, x + torch.tensor([0.5, 0.0, 0.25], device=dev)])
+    del q
+    k2_err = _check_k2(K, x, y, f"clip axis {tuple(x.shape)} x "
+                       f"{tuple(y.shape)}, padded, shifted and cut")
+    d_k, i_k = K.nn_distance_cuda(x, y)
+    for c in range(2):
+        d_c, i_c = K.nn_distance_cuda(x[c], y[c])
+        if not (torch.equal(d_k[c], d_c) and torch.equal(i_k[c], i_c)):
+            raise AssertionError(f"K2 clip {c} differs from its [M, 3] "
+                                 "launch")
+    if int(i_k[1].max()) >= len(shifted):
+        raise AssertionError("K2: a padding point won")
+    print("[K2] clip axis: each clip bit-identical to its own [M, 3] "
+          "launch; no padding point won", flush=True)
+    Q, M = x[0].numel() // 3, y.shape[1]
+    ms = _median_ms(lambda: K.nn_distance_cuda(x, y), reps=10)
+    single_ms = _median_ms(lambda: K.nn_distance_cuda(x[0], y[0]), reps=10)
+    plain_ms = _median_ms(lambda: K.nn_distance_plain(x, y), reps=1,
+                          warmup=1)
+    xf = x.reshape(2, -1, 3)
+
+    def cdist_min():
+        for c in range(2):
+            for s in range(0, Q, 8192):
+                torch.cdist(xf[c, s:s + 8192], y[c]).min(-1)
+
+    lib_ms = _median_ms(cdist_min, reps=2, warmup=1)
+    bound_ms, bound_by = _k2_bound_ms(Q, M, clips=2)
+    print(f"[K2] clip axis [2, {Q}] x [2, {M}]: kernel {ms:.4f} ms per "
+          f"launch (2 x the single-cloud launch: {2 * single_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, cdist+min {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of the "
+          "bound", flush=True)
+    del x, y, d_k, i_k
+    torch.cuda.empty_cache()
+    return k1, (k2_err, ms, plain_ms, lib_ms, bound_ms, bound_by)
+
+
+def _run_fleet(mc, bodies, cams, scenes, mode, C, K, expect, label):
+    """One MultiClipSolver.fit with both counts at 0 and every stage
+    fenced: each clip's losses finite and each phase ending below where
+    it began, the launches of each kernel. Returns (seconds, histories,
+    final state, stage timings)."""
+    _reset_counts(C, K)
+    torch.cuda.reset_peak_memory_stats()
+    tm = {}
+    t0 = time.perf_counter()
+    state_b, hist = mc.fit(bodies, cams, scenes, mode=mode, timings=tm)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = (C.launches, K.launches)
+    clips = bodies.shape[0]
+    fences = tm.pop("_fences")
+    for k, v in hist.items():
+        print(f"[{label}] {k}: {v.shape[0]} steps x {v.shape[1]} clips, "
+              f"mean loss {v[0].mean():.6f} -> {v[-1].mean():.6f}",
+              flush=True)
+        if not np.all(np.isfinite(v)):
+            raise AssertionError(f"{label} {k}: non-finite loss")
+        if not np.all(v[-1] < v[0]):
+            raise AssertionError(f"{label} {k}: a clip's loss did not "
+                                 "decrease")
+    stages = {k: round(v, 3) for k, v in tm.items()}
+    print(f"[{label}] {clips} clips: {secs:.3f} s, "
+          f"{clips / secs * 3600:.1f} clips per hour; stages (s) {stages}, "
+          f"fences {fences}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K1 "
+          f"launches {got[0]}, K2 launches {got[1]} (expected {expect[0]}, "
+          f"{expect[1]})", flush=True)
+    if got != expect:
+        raise AssertionError(f"{label}: launches {got}, expected {expect}")
+    for body, scale, cam in mc.result_params(state_b):
+        if not (np.all(np.isfinite(body)) and np.isfinite(scale)
+                and np.all(np.isfinite(cam))):
+            raise AssertionError(f"{label}: final parameters not finite")
+    return secs, hist, state_b, tm
+
+
+def _fleet_phases(C, K, prob, dev, local_s, local_hist, n_a, n_dct_b):
+    """Phases 15-18. Returns the K1 launches of the local fleet and the
+    K2 launches of the global/brute fleet."""
+    from fpv4d_torch.parallel.multi_clip import MultiClipSolver
+    from fpv4d_torch.utils.bench_problem import fleet_batch, standard_problem
+
+    # 15. local/grid, 8 clips x 900 frames, skate in chunks of 2, then 0
+    clips = 8
+    bodies, cams, scenes = fleet_batch(prob, clips)
+    mc = MultiClipSolver(solver=prob.solver)
+    secs, hist, state2, tm2 = _run_fleet(mc, bodies, cams, scenes, "local",
+                                         C, K, (n_a, 0), "fleet/local")
+    k1_launches = n_a
+    print(f"[fleet/local] per clip {secs / clips:.3f} s = "
+          f"{secs / clips / local_s:.3f} x the single local solve "
+          f"({local_s:.3f} s, phase 5)", flush=True)
+    _hold_histories({k: v[:, 0] for k, v in hist.items()}, local_hist,
+                    "fleet/local clip 0", "fleet vs single solve")
+    mc.skate_clip_chunk = 0
+    _, hist0, state0, tm0 = _run_fleet(mc, bodies, cams, scenes, "local", C,
+                                       K, (n_a, 0), "fleet/local, skate "
+                                       "unchunked")
+    print(f"[fleet/local] skate phase {tm2['skate']:.3f} s in chunks of 2, "
+          f"{tm0['skate']:.3f} s unchunked; grid cache hits "
+          f"{mc.grid_cache_hits}, misses {mc.grid_cache_misses}; max "
+          f"|body_6d| difference "
+          f"{float((state2.body_6d - state0.body_6d).abs().max()):.3e}",
+          flush=True)
+    if (mc.grid_cache_hits, mc.grid_cache_misses) != (1, 1):
+        raise AssertionError("fleet: the second fit must hit the grid cache")
+    _hold_histories(hist0, hist, "fleet/local skate unchunked",
+                    "vs chunks of 2")
+    del state2, state0
+    torch.cuda.empty_cache()
+
+    # 16. global with brute-force contact NN, 2 clips at full width
+    prob_b = standard_problem(device=dev, nn_impl="brute")
+    bodies2, cams2, scenes2 = fleet_batch(prob_b, 2)
+    _run_fleet(MultiClipSolver(solver=prob_b.solver), bodies2, cams2,
+               scenes2, "global", C, K, (0, n_a), "fleet/global/brute")
+    k2_launches = n_a
+    del prob_b
+    torch.cuda.empty_cache()
+
+    # 17. dct with the grid, 8 clips at full length
+    _run_fleet(mc, bodies, cams, scenes, "dct", C, K, (n_dct_b, 0),
+               "fleet/dct")
+
+    # 18. a small fleet on the card and on the CPU
+    for mode, nn_impl in (("local", "grid"), ("global", "brute")):
+        hs = []
+        for d in (dev, torch.device("cpu")):
+            small = standard_problem(device=d, T=12, nn_impl=nn_impl,
+                                     **_SMALL)
+            b, c, sc = fleet_batch(small, 2)
+            hs.append(MultiClipSolver(solver=small.solver).fit(
+                b, c, sc, mode=mode)[1])
+        _hold_histories(*hs, f"fleet C=2 T=12 {mode}/{nn_impl}")
+    return k1_launches, k2_launches
+
+
+def _write_clip(root: Path, T: int, seed: int):
+    """A clip directory as _cli_on_card writes one: T frames of body
+    pkls, a 2,500-point scene.ply and a camerapose.txt."""
+    from fpv4d_torch.io import body_pkl
+    from fpv4d_torch.io.ply import write_ply
+    rng = np.random.RandomState(seed)
+    body_pkl.save_clip(str(root / "body_gen"),
+                       (rng.randn(T, 75) * 0.1).astype(np.float32))
+    g = np.linspace(-3, 3, 50)
+    xs, zs = np.meshgrid(g, g)
+    write_ply(str(root / "scene.ply"), np.stack(
+        [xs.ravel(), -1.0 + 0.03 * rng.randn(xs.size), zs.ravel()],
+        1).astype(np.float32))
+    with open(root / "camerapose.txt", "w") as f:
+        for t in range(T):
+            f.write(f"{t:06d}.jpg 1 0 0 0 0.1 0.2 {0.3 + 0.1 * t}\n")
+
+
+def _multiopt_on_card(tmp: Path):
+    """Phase 19: the multiopt CLI in a subprocess on two clip
+    directories, alone and then in a one-rank NCCL process group
+    (FPV4D_DISTRIBUTED=1, RANK=0, WORLD_SIZE=1, a free MASTER_PORT); the
+    second run's pkls against the first's."""
+    import socket
+    from fpv4d_torch.io import body_pkl
+    T = 6
+    dirs = []
+    for i, name in enumerate(("clipA", "clipB")):
+        (tmp / name).mkdir()
+        _write_clip(tmp / name, T, seed=10 + i)
+        dirs.append(str(tmp / name))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    runs = (("alone", {}), ("one-rank NCCL group", dict(
+        FPV4D_DISTRIBUTED="1", RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))))
+    outs = []
+    for i, (label, extra) in enumerate(runs):
+        out = tmp / f"out{i}"
+        cmd = [sys.executable, "-m", "fpv4d_torch.cli.multiopt", *dirs,
+               "--out", str(out), "--mode", "global", "--iters", "10",
+               "--scene-name", "scene.ply", "--model", "NONE", "--vposer",
+               "NONE"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, env=dict(base, **extra),
+                             capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        for line in (res.stdout + res.stderr).splitlines()[-6:]:
+            print(f"[multiopt] {label} | {line}")
+        if res.returncode != 0:
+            raise AssertionError(f"multiopt ({label}) exited "
+                                 f"{res.returncode}")
+        frames = [[body_pkl.load_frame(str(p)) for p in
+                   sorted((out / name).glob("*.pkl"))]
+                  for name in ("clipA", "clipB")]
+        if not all(len(f) == T and all("scale" in d and "camera_ext" in d
+                                       for d in f) for f in frames):
+            raise AssertionError(f"multiopt ({label}) wrote no complete "
+                                 "pkls")
+        print(f"[multiopt] {label}: exit 0 in {secs:.2f} s, 2 x {T} pkls",
+              flush=True)
+        outs.append(frames)
+    diff = max(float(np.max(np.abs(np.asarray(a[k], np.float64)
+                                   - np.asarray(b[k], np.float64))))
+               for fa, fb in zip(*outs) for a, b in zip(fa, fb) for k in a)
+    print(f"[multiopt] the NCCL run's pkls against the first run's: max abs "
+          f"difference {diff:.3e}", flush=True)
+    if diff != 0.0:
+        raise AssertionError("multiopt: the one-rank NCCL run's pkls differ")
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -794,8 +1108,8 @@ def main() -> int:
     n_dct_b = cfg.num_iter_dct - int(cfg.num_iter_dct * cfg.dct_split)
 
     # 5. the local path (the main path of the first slice)
-    k1_launches, _, _ = _run_fit(solver, prob, "local", C, K, (n_a, 0),
-                                 "local")
+    k1_launches, _, local_s, local_hist = _run_fit(
+        solver, prob, "local", C, K, (n_a, 0), "local")
 
     # 6. global: brute-force contact NN (K2), then the grid (K1)
     t0 = time.perf_counter()
@@ -803,7 +1117,7 @@ def main() -> int:
     print(f"[setup] brute-force standard problem in "
           f"{time.perf_counter() - t0:.2f} s (no voxel grid: "
           f"{prob_b.solver.grid is None})", flush=True)
-    _, k2_launches, _ = _run_fit(prob_b.solver, prob_b, "global", C, K,
+    _, k2_launches, _, _ = _run_fit(prob_b.solver, prob_b, "global", C, K,
                                  (0, n_a), "global/brute")
     del prob_b
     torch.cuda.empty_cache()
@@ -832,20 +1146,41 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         _pipeline_on_card(Path(tmp))
 
+    # 14. both kernels at the fleet's shapes
+    k1_fleet, k2_fleet = _fleet_kernels(C, K, solver, prob, dev)
+
+    # 15-18. the fleet: local/grid (8 x 900), global/brute (2 x 900),
+    # dct/grid (8 x 900), and a small fleet on the card and on the CPU
+    k1_fleet_launches, k2_fleet_launches = _fleet_phases(
+        C, K, prob, dev, local_s, local_hist, n_a, n_dct_b)
+
+    # 19. multiopt on the card, alone and in a one-rank NCCL group
+    with tempfile.TemporaryDirectory() as tmp:
+        _multiopt_on_card(Path(tmp))
+
+    k1_src = ("fpv4d_torch/csrc/cand_nn.cu", "fpv4d/ops/cand_pallas.py:160")
+    k2_src = ("fpv4d_torch/csrc/chamfer_nn.cu",
+              "fpv4d/ops/chamfer_pallas.py:55")
+
+    def entry(name, src, launches, m):
+        err, ms, plain_ms, lib_ms, bound_ms, bound_by = m
+        return {"name": name, "route": "cuda", "source": src[0],
+                "replaces": src[1], "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
+
     ms, plain_ms, lib_ms, bound_ms, bound_by = timings[192]
     print(json.dumps({"kernels": [
-        {"name": "cand_nn", "route": "cuda",
-         "source": "fpv4d_torch/csrc/cand_nn.cu",
-         "replaces": "fpv4d/ops/cand_pallas.py:160",
-         "launches": k1_launches, "max_abs_err": err192, "ms": ms,
-         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-         "library_ms": lib_ms},
-        {"name": "chamfer_nn", "route": "cuda",
-         "source": "fpv4d_torch/csrc/chamfer_nn.cu",
-         "replaces": "fpv4d/ops/chamfer_pallas.py:55",
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_bound_by, "library_ms": k2_lib_ms}]}))
+        entry("cand_nn", k1_src, k1_launches,
+              (err192, ms, plain_ms, lib_ms, bound_ms, bound_by)),
+        entry("chamfer_nn", k2_src, k2_launches,
+              (k2_err, k2_ms, k2_plain_ms, k2_lib_ms, k2_bound,
+               k2_bound_by)),
+        entry("cand_nn (fleet, 8 clips folded)", k1_src, k1_fleet_launches,
+              k1_fleet),
+        entry("chamfer_nn (clip axis, 2 clips)", k2_src, k2_fleet_launches,
+              k2_fleet)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -57,13 +57,17 @@ cand_nn_kernel(const float* __restrict__ q, const float* __restrict__ cand,
                float* __restrict__ dist, int* __restrict__ slot,
                float* __restrict__ nearest, int* __restrict__ rechecks,
                int N, int P) {
+  // one block per (frame, 128 queries), the frames outermost on the
+  // one grid axis that takes more than 65,535 blocks (folded fleets
+  // reach 73 clips of 900 frames)
+  const int nblk = (N + kQueries - 1) / kQueries;
   __shared__ uint4 frag[kStage / gram::kChunk * gram::kChunkFrags];
   __shared__ float raw[3 * kStage];
   __shared__ unsigned char rv[kStage];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int tf = blockIdx.y;
-  const int n0 = blockIdx.x * kQueries;
+  const int tf = blockIdx.x / nblk;
+  const int n0 = (blockIdx.x % nblk) * kQueries;
   const long long qf = (long long)tf * N;  // first query row of the frame
   const float* cf = cand + (long long)tf * P * 3;
   const unsigned char* vf = valid + (long long)tf * P;
@@ -165,12 +169,14 @@ cand_nn_kernel(const float* __restrict__ q, const float* __restrict__ cand,
 // cand [T,P,3] f32, valid [T,P] bool (1 byte), dist [T,N] f32,
 // slot [T,N] int32, nearest [T,N,3] f32; rechecks is null or [T,N]
 // int32, which then receives each query's number of exact evaluations.
+// T * ceil(N / 128) < 2^31 (the wrapper's int32 guard implies it).
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int cand_nn_forward(const void* q, const void* cand,
                                const void* valid, void* dist, void* slot,
                                void* nearest, void* rechecks, int T, int N,
                                int P, void* stream) {
-  const dim3 grid((N + kQueries - 1) / kQueries, T);
+  const unsigned nblk = (N + kQueries - 1) / kQueries;
+  const dim3 grid(static_cast<unsigned>(T) * nblk);
   cand_nn_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(cand),
       static_cast<const unsigned char*>(valid), static_cast<float*>(dist),

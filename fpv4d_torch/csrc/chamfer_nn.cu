@@ -7,7 +7,10 @@
 //   d[m] = (dx*dx + dy*dy) + dz*dz  with (dx, dy, dz) = x[q] - y[m],
 //   idx[q] = the first m of least d (ties to the smallest index),
 //   dist[q] = d[idx[q]],
-// bit-identical to nn_distance_plain (ops/chamfer_cuda.py).
+// bit-identical to nn_distance_plain (ops/chamfer_cuda.py). A leading
+// clip axis (the multi-clip fleet's padded scenes, the reference's
+// pallas_call under vmap) is the grid's y axis: clip c searches its own
+// Q queries in its own M-point cloud, in the same launch.
 //
 // What bounds it on an H100: at the global clip solve's shapes
 // (Q = 900 frames x 813 contact vertices = 731,700 queries, M = 100,489
@@ -80,6 +83,14 @@ __global__ void __launch_bounds__(kThreads, 3)
 chamfer_nn_kernel(const float* __restrict__ x, const float* __restrict__ y,
                   float* __restrict__ dist, int* __restrict__ idx,
                   int* __restrict__ rechecks, int Q, int M) {
+  {  // clip blockIdx.y: its queries, cloud and outputs
+    const long long clip = blockIdx.y;
+    x += 3 * clip * Q;
+    y += 3 * clip * M;
+    dist += clip * Q;
+    idx += clip * Q;
+    if (rechecks != nullptr) rechecks += clip * Q;
+  }
   // dynamic: kTile / 32 staged chunks, then two f32 tiles
   extern __shared__ uint4 frag[];
   float* const raw = reinterpret_cast<float*>(frag + kFrags);
@@ -212,16 +223,16 @@ chamfer_nn_kernel(const float* __restrict__ x, const float* __restrict__ y,
 
 }  // namespace
 
-// Plain C entry for ctypes. All tensors contiguous: x [Q,3] f32,
-// y [M,3] f32, dist [Q] f32, idx [Q] int32; rechecks is null or [Q]
-// int32, which then receives each query's number of exact
-// re-evaluations. Q >= 1, M >= 1 and 3*Q, 3*M < 2^31 (the wrapper
-// checks). Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// Plain C entry for ctypes. All tensors contiguous: x [C,Q,3] f32,
+// y [C,M,3] f32, dist [C,Q] f32, idx [C,Q] int32 (each clip's indices
+// into its own cloud); rechecks is null or [C,Q] int32, which then
+// receives each query's number of exact re-evaluations. Q >= 1, M >= 1,
+// 1 <= C <= 65,535 and 3*Q, 3*M < 2^31 (the wrapper checks). Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int chamfer_nn_forward(const void* x, const void* y, void* dist,
                                   void* idx, void* rechecks, int Q, int M,
-                                  void* stream) {
-  const dim3 grid((Q + kQueries - 1) / kQueries);
+                                  int C, void* stream) {
+  const dim3 grid((Q + kQueries - 1) / kQueries, C);
   const cudaError_t e = cudaFuncSetAttribute(
       chamfer_nn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -9,6 +9,11 @@ distance and that index and is differentiable in x and y, with the
 reference's VJP: dx = g * 2 (x - y[idx]), and -dx scatter-added into dy
 (``index_add_``, computed only when y needs a gradient).
 
+Clouds may carry a leading clip axis, y [C, M, 3] against x [C, ..., 3]
+(the multi-clip fleet's padded scenes, where the reference vmaps its
+kernel): each clip searches its own cloud, the indices are per clip,
+and the kernel makes one launch for all clips.
+
 The TPU kernel selects with a folded Gram form (|y|^2 - 2 x.y in bf16x3
 emulation), whose winners can differ from exact differences among
 near-ties. The kernel here (csrc/chamfer_nn.cu) runs the same folded
@@ -56,15 +61,21 @@ def build() -> float:
     t0 = time.perf_counter()
     ptr, i32 = cuda_build.POINTER, cuda_build.INT
     _launch, build_log = cuda_build.load_function(
-        SRC, "chamfer_nn_forward", [ptr] * 5 + [i32] * 2 + [ptr])
+        SRC, "chamfer_nn_forward", [ptr] * 5 + [i32] * 3 + [ptr])
     return time.perf_counter() - t0
 
 
-def _check_cloud(y: torch.Tensor):
-    if y.ndim != 2 or y.shape[1] != 3:
-        raise ValueError(f"the cloud must be [M, 3], got {tuple(y.shape)}")
-    if y.shape[0] == 0:
+def _check_cloud(y: torch.Tensor, x: Optional[torch.Tensor] = None):
+    """y is [M, 3], or [C, M, 3] with queries x [C, ..., 3]."""
+    if y.ndim not in (2, 3) or y.shape[-1] != 3:
+        raise ValueError(f"the cloud must be [M, 3] or [C, M, 3], got "
+                         f"{tuple(y.shape)}")
+    if y.shape[-2] == 0:
         raise ValueError("nearest neighbour in an empty cloud (M = 0)")
+    if y.ndim == 3 and x is not None and (x.ndim < 2
+                                          or x.shape[0] != y.shape[0]):
+        raise ValueError(f"clouds {tuple(y.shape)} need queries "
+                         f"[C, ..., 3] of the same C, got {tuple(x.shape)}")
 
 
 def dist_sq_qm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -81,8 +92,12 @@ def nn_distance_plain(x: torch.Tensor, y: torch.Tensor
     """Plain PyTorch version of K2: x [..., 3], y [M, 3] -> (dist [...]
     f32, idx [...] int32), in query chunks whose [chunk, M] intermediates
     stay under a fixed size; torch.min keeps the smallest index among
-    ties."""
-    _check_cloud(y)
+    ties. With clouds y [C, M, 3], each clip x[c] against y[c]."""
+    _check_cloud(y, x)
+    if y.ndim == 3:
+        out = [nn_distance_plain(xc, yc) for xc, yc in zip(x, y)]
+        return (torch.stack([d for d, _ in out]),
+                torch.stack([i for _, i in out]))
     batch_shape = x.shape[:-1]
     xf = x.reshape(-1, 3)
     chunk = max(1, _PLAIN_ELEMS // y.shape[0])
@@ -115,11 +130,14 @@ def nn_distance_cuda(x: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"x on {x.device}, y on {y.device}")
     if x.shape[-1] != 3:
         raise ValueError(f"queries must be [..., 3], got {tuple(x.shape)}")
-    _check_cloud(y)
+    _check_cloud(y, x)
     batch_shape = x.shape[:-1]
-    Q, M = x.numel() // 3, y.shape[0]
+    C = y.shape[0] if y.ndim == 3 else 1
+    Q, M = x.numel() // (3 * C), y.shape[-2]
     if 3 * Q >= 2 ** 31 or 3 * M >= 2 ** 31:
         raise ValueError("nn_distance_cuda: tensors exceed int32 indexing")
+    if C > 65_535:
+        raise ValueError(f"nn_distance_cuda: {C} clips, at most 65,535")
     dist = torch.empty(batch_shape, dtype=torch.float32, device=x.device)
     idx = torch.empty(batch_shape, dtype=torch.int32, device=x.device)
     if rechecks is not None and (
@@ -134,7 +152,7 @@ def nn_distance_cuda(x: torch.Tensor, y: torch.Tensor,
     x, y = x.contiguous(), y.contiguous()
     err = _launch(
         x.data_ptr(), y.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-        0 if rechecks is None else rechecks.data_ptr(), Q, M,
+        0 if rechecks is None else rechecks.data_ptr(), Q, M, C,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"chamfer_nn kernel launch failed: CUDA error "
@@ -149,7 +167,9 @@ def filter_emulated(x: torch.Tensor, y: torch.Tensor, kind: str = "bf16"
     queries centred as the kernel centres them: (whether each query's
     exact winner and ties pass the filter at the winner's distance [...]
     bool; how many points pass there [...] int64, the re-checks a query
-    costs once its winner is found)."""
+    costs once its winner is found). One cloud y [M, 3]."""
+    if y.ndim != 2:
+        raise ValueError("filter_emulated takes one cloud [M, 3]")
     _check_cloud(y)
     xf = x.reshape(-1, 3)
     won, passes = [], []
@@ -171,11 +191,23 @@ def nn_index(x: torch.Tensor, y: torch.Tensor
     return nn_distance_plain(x, y)
 
 
+def _flat_rows(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """idx [...] (per clip for clouds y [C, M, 3]) -> the rows of
+    y.reshape(-1, 3) they name, int64 [...]."""
+    rows = idx.long()
+    if y.ndim == 3:
+        off = torch.arange(y.shape[0], device=idx.device) * y.shape[1]
+        rows = rows + off.reshape((-1,) + (1,) * (idx.ndim - 1))
+    return rows
+
+
 def scatter_to_cloud(y: torch.Tensor, idx: torch.Tensor,
                      d_near: torch.Tensor) -> torch.Tensor:
-    """dy: d_near [..., 3] summed onto the cloud rows idx [...]."""
-    return torch.zeros_like(y).index_add_(0, idx.reshape(-1).long(),
-                                          d_near.reshape(-1, 3))
+    """dy: d_near [..., 3] summed onto the cloud rows idx [...] (each
+    clip onto its own cloud for y [C, M, 3])."""
+    return torch.zeros_like(y).reshape(-1, 3).index_add_(
+        0, _flat_rows(y, idx).reshape(-1),
+        d_near.reshape(-1, 3)).reshape(y.shape)
 
 
 class _NNDistance(torch.autograd.Function):
@@ -191,7 +223,7 @@ class _NNDistance(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_dist, _g_idx):
         x, y, idx = ctx.saved_tensors
-        nearest = y[idx.long()]
+        nearest = y.reshape(-1, 3)[_flat_rows(y, idx)]
         dx = g_dist[..., None] * (2.0 * (x - nearest))
         dy = (scatter_to_cloud(y, idx, -dx) if ctx.needs_input_grad[1]
               else None)
@@ -202,7 +234,8 @@ def nn_distance(x: torch.Tensor, y: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Squared distance from each x [..., 3] to its nearest y [M, 3]
     point -> (dist [...] f32, idx [...] int32), differentiable in x and
-    y: the kernel for CUDA tensors, the plain version for CPU tensors."""
+    y: the kernel for CUDA tensors, the plain version for CPU tensors.
+    With clouds y [C, M, 3], x is [C, ..., 3] and clip c searches y[c]."""
     return _NNDistance.apply(x, y, nn_index)
 
 

@@ -1,7 +1,8 @@
 """Contact nearest-neighbour front end (port of fpv4d/ops/nn.py:
 VoxelGrid + the NumPy grid builder, grid_min_dist, FrameCands,
 frame_candidates, compact_candidates, nn_to_candidates, and the exact
-brute-force nn_brute).
+brute-force nn_brute; for the multi-clip fleet, build_voxel_grid_batch,
+frame_candidates_folded and grid_min_dist_folded).
 
 The scene is static across the solve, so a voxel grid stores, per cell,
 the K scene points of the cell's 3x3x3 neighbourhood. Every
@@ -14,11 +15,17 @@ kernel of ops/cand_cuda.py on the card).
 
 Without a grid (``nn_impl='brute'``), nn_brute searches the whole scene
 every step: kernel K2 of ops/chamfer_cuda.py on the card.
+
+A fleet of C clips folds its clips into frames: a batched grid holds C
+tables with shared dims and h, and the folded functions take queries
+[C*T, ...] whose frame t belongs to clip t // T, offsetting each frame's
+cell ids into the concatenated tables. K1 then sees [C*T, N, P] tables
+in one launch; K2 searches each clip's padded scene in one launch.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +38,11 @@ _FILL_CELL = 2 ** 30
 
 @dataclass
 class VoxelGrid:
-    """Dense voxel table over the scene bounding box: cand_pts [C, K, 3]
-    candidate coordinates per cell, cand_idx [C, K] their scene indices
-    (-1 = empty slot), origin [3]; dims and h are static metadata."""
+    """Dense voxel table over the scene bounding box: cand_pts
+    [cells, K, 3] candidate coordinates per cell, cand_idx [cells, K]
+    their scene indices (-1 = empty slot), origin [3]; dims and h are
+    static metadata. A batched grid (build_voxel_grid_batch) has a
+    leading clip axis on the three tensors and shares dims and h."""
     cand_pts: torch.Tensor
     cand_idx: torch.Tensor
     origin: torch.Tensor
@@ -118,13 +127,85 @@ def build_voxel_grid(points: np.ndarray, h: float = 0.25,
                      h=float(h))
 
 
-def _cell_ids(grid: VoxelGrid, q: torch.Tensor) -> torch.Tensor:
-    """q [..., 3] -> flat (clamped) cell id [...] int64."""
+def build_voxel_grid_batch(scenes, h: float = 0.25,
+                           slots_per_cell: int = 32,
+                           max_cells: int = 500_000,
+                           device="cpu") -> VoxelGrid:
+    """One grid per clip, batched (the reference's nn.py:188-234): leaves
+    [C, ...] with shared dims (the per-axis maxima) and h (the coarsest
+    any clip's cell budget chose; when one clip coarsens h, every clip is
+    rebuilt at it). Each clip's table is scattered into the common dims
+    with EDGE replication, not zeros: the query path clamps cells
+    against the common dims, so a query beyond a smaller clip's box lands
+    on a copy of its edge cell, as the single-clip clamp does."""
+    built = []
+    h_common = h
+    for s in scenes:
+        g = build_voxel_grid(np.asarray(s), h=h_common,
+                             slots_per_cell=slots_per_cell,
+                             max_cells=max_cells)
+        h_common = max(h_common, g.h)
+        built.append(g)
+    if any(g.h != h_common for g in built):
+        built = [build_voxel_grid(np.asarray(s), h=h_common,
+                                  slots_per_cell=slots_per_cell,
+                                  max_cells=max_cells) for s in scenes]
+    dims = tuple(int(max(g.dims[a] for g in built)) for a in range(3))
+    num_cells, K = int(np.prod(dims)), slots_per_cell
+    pts = np.zeros((len(built), num_cells, K, 3), np.float32)
+    idx = np.full((len(built), num_cells, K), -1, np.int32)
+    origins = np.zeros((len(built), 3), np.float32)
+    for c, g in enumerate(built):
+        pad = tuple((0, dims[a] - g.dims[a]) for a in range(3))
+        pts[c] = np.pad(g.cand_pts.numpy().reshape(g.dims + (K, 3)),
+                        pad + ((0, 0), (0, 0)),
+                        mode="edge").reshape(num_cells, K, 3)
+        idx[c] = np.pad(g.cand_idx.numpy().reshape(g.dims + (K,)),
+                        pad + ((0, 0),), mode="edge").reshape(num_cells, K)
+        origins[c] = g.origin.numpy()
+    return VoxelGrid(cand_pts=torch.as_tensor(pts, device=device),
+                     cand_idx=torch.as_tensor(idx, device=device),
+                     origin=torch.as_tensor(origins, device=device),
+                     dims=dims, h=float(h_common))
+
+
+def _cell_ids(grid: VoxelGrid, q: torch.Tensor,
+              origin: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [..., 3] -> flat (clamped) cell id [...] int64; `origin`
+    (broadcast against q) replaces the grid's own."""
     dims = torch.as_tensor(grid.dims, device=q.device)
-    cell = torch.floor((q - grid.origin) / grid.h).to(torch.int64)
+    origin = grid.origin if origin is None else origin
+    cell = torch.floor((q - origin) / grid.h).to(torch.int64)
     cell = torch.minimum(torch.clamp(cell, min=0), dims - 1)
     return ((cell[..., 0] * grid.dims[1] + cell[..., 1]) * grid.dims[2]
             + cell[..., 2])
+
+
+def _fold(grid_b: VoxelGrid, q: torch.Tensor, C: int):
+    """A batched grid and folded queries [C*T, ..., 3] -> (each frame's
+    origin, broadcast against q; each frame's row offset [C*T, 1, ...]
+    into the concatenated tables; the tables cand_pts [C*cells, K, 3]
+    and cand_idx [C*cells, K])."""
+    CT = q.shape[0]
+    if CT % C:
+        raise ValueError(f"{CT} folded frames do not split into {C} clips")
+    cells, K = grid_b.cand_pts.shape[1:3]
+    lead = (CT,) + (1,) * (q.ndim - 1)
+    origin = grid_b.origin.repeat_interleave(CT // C, dim=0)
+    offs = (torch.arange(C, device=q.device) * cells).repeat_interleave(
+        CT // C)
+    return (origin.reshape(lead[:-1] + (3,)), offs.reshape(lead[:-1]),
+            grid_b.cand_pts.reshape(C * cells, K, 3),
+            grid_b.cand_idx.reshape(C * cells, K))
+
+
+def _min_dist(q: torch.Tensor, flat: torch.Tensor, cand_pts: torch.Tensor,
+              cand_idx: torch.Tensor) -> torch.Tensor:
+    pts = cand_pts[flat]                                   # [..., K, 3]
+    valid = cand_idx[flat] >= 0
+    d = torch.sum((q[..., None, :] - pts) ** 2, dim=-1)
+    d = torch.where(valid, d, BIG)
+    return torch.clamp(torch.amin(d, dim=-1), max=BIG)
 
 
 def grid_min_dist(grid: VoxelGrid, q: torch.Tensor) -> torch.Tensor:
@@ -132,12 +213,17 @@ def grid_min_dist(grid: VoxelGrid, q: torch.Tensor) -> torch.Tensor:
     query's cell has no candidate). Plain autodiff; torch.amin splits the
     gradient evenly among exactly tied candidates, as JAX's min does
     (torch.min(dim) would send it all to one)."""
-    flat = _cell_ids(grid, q)
-    pts = grid.cand_pts[flat]                              # [..., K, 3]
-    valid = grid.cand_idx[flat] >= 0
-    d = torch.sum((q[..., None, :] - pts) ** 2, dim=-1)
-    d = torch.where(valid, d, BIG)
-    return torch.clamp(torch.amin(d, dim=-1), max=BIG)
+    return _min_dist(q, _cell_ids(grid, q), grid.cand_pts, grid.cand_idx)
+
+
+def grid_min_dist_folded(grid_b: VoxelGrid, q: torch.Tensor,
+                         C: int) -> torch.Tensor:
+    """grid_min_dist over a batched grid with the clips folded into
+    frames: q [C*T, ..., 3], frame t against clip t // T's table ->
+    dist_sq [C*T, ...] (what the reference gets by vmapping grid_min_dist
+    over per-clip grids)."""
+    origin, offs, pts, idx = _fold(grid_b, q, C)
+    return _min_dist(q, _cell_ids(grid_b, q, origin) + offs, pts, idx)
 
 
 def frame_candidates(grid: VoxelGrid, q: torch.Tensor,
@@ -149,19 +235,42 @@ def frame_candidates(grid: VoxelGrid, q: torch.Tensor,
     torch has no ``unique(size=)``: each row is sorted, its first
     occurrences are masked, and their ranks scatter the unique ids into
     a [T, budget] table (ranks >= budget go to a dropped column)."""
-    T, N, _ = q.shape
-    K = grid.cand_pts.shape[-2]
-    num_cells = grid.cand_pts.shape[0]
-    s = torch.sort(_cell_ids(grid, q), dim=1).values       # [T, N]
+    return _frame_tables(_cell_ids(grid, q), grid.cand_pts, grid.cand_idx,
+                         grid.cand_pts.shape[0], budget)
+
+
+def frame_candidates_folded(grid_b: VoxelGrid, q_flat: torch.Tensor,
+                            C: int, budget: int = 64) -> FrameCands:
+    """frame_candidates over a batched grid with the clips folded into
+    frames (the reference's nn.py:359-396): q_flat [C*T, N, 3], frame t
+    against clip t // T's table -> FrameCands [C*T, budget * K]. Each
+    frame's unique cell ids are offset by its clip's start in the
+    concatenated tables, so one row gather serves every clip; the tables
+    are those of frame_candidates on each clip's own grid."""
+    origin, offs, pts, idx = _fold(grid_b, q_flat, C)
+    return _frame_tables(_cell_ids(grid_b, q_flat, origin), pts, idx,
+                         grid_b.cand_pts.shape[1], budget, offs)
+
+
+def _frame_tables(flat: torch.Tensor, cand_pts: torch.Tensor,
+                  cand_idx: torch.Tensor, num_cells: int, budget: int,
+                  offs: Optional[torch.Tensor] = None) -> FrameCands:
+    """Cell ids [T, N] -> the tables of each frame's sorted unique cells;
+    `offs` [T, 1] shifts a frame's rows into concatenated tables."""
+    T = flat.shape[0]
+    K = cand_pts.shape[-2]
+    s = torch.sort(flat, dim=1).values                     # [T, N]
     first = torch.ones_like(s, dtype=torch.bool)
     first[:, 1:] = s[:, 1:] != s[:, :-1]
     rank = torch.cumsum(first.to(torch.int64), dim=1) - 1
     dest = torch.where(first & (rank < budget), rank, budget)
     uniq = torch.full((T, budget + 1), _FILL_CELL, dtype=torch.int64,
-                      device=q.device).scatter_(1, dest, s)[:, :budget]
+                      device=flat.device).scatter_(1, dest, s)[:, :budget]
     safe_u = torch.clamp(uniq, max=num_cells - 1)
-    cand = grid.cand_pts[safe_u].reshape(T, budget * K, 3)
-    valid = ((grid.cand_idx[safe_u] >= 0).reshape(T, budget * K)
+    if offs is not None:
+        safe_u = safe_u + offs
+    cand = cand_pts[safe_u].reshape(T, budget * K, 3)
+    valid = ((cand_idx[safe_u] >= 0).reshape(T, budget * K)
              & (uniq < _FILL_CELL).repeat_interleave(K, dim=-1))
     return FrameCands(cand=cand, valid=valid)
 
@@ -204,7 +313,8 @@ def nn_to_candidates(q: torch.Tensor, cands: FrameCands) -> torch.Tensor:
 def nn_brute(x: torch.Tensor, y: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Brute-force NN: x [..., 3], y [M, 3] -> (dist_sq [...], idx [...]
-    int32), K2 for CUDA tensors and its plain version for CPU tensors,
+    int32), or per clip for clouds y [C, M, 3] and x [C, ..., 3] (one
+    launch), K2 for CUDA tensors and its plain version for CPU tensors,
     with the reference's VJP (dx = g * 2 (x - y[idx]), -dx added into
     dy). The reference re-evaluates |x - y[idx]|^2 after its Gram-form
     search (nn._exact_at); K2's distance already is that difference

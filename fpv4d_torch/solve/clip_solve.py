@@ -191,6 +191,7 @@ class ClipSolver:
         self.contact_vids = np.asarray(contact_vids, np.int32)
         self.contact_vids_left = np.asarray(contact_vids_left, np.int32)
         self.contact_vids_right = np.asarray(contact_vids_right, np.int32)
+        self.grid_h, self.grid_slots = grid_h, grid_slots
         if nn_impl != "grid":
             grid = None
         elif grid is None:
@@ -486,15 +487,22 @@ class ClipSolver:
     def _run_steps(state: ClipState, opt: torch.optim.Adam, mask: ClipState,
                    num_steps: int, loss_fn) -> torch.Tensor:
         """num_steps Adam steps of loss_fn(masked state) -> per-step
-        losses [num_steps] (kept on the device; read once per phase)."""
-        hist = torch.empty(num_steps, dtype=torch.float32,
-                           device=state.body_6d.device)
+        losses [num_steps] (kept on the device; read once per phase). A
+        fleet's loss_fn returns per-clip losses [C]: the step descends
+        their sum and the history is [num_steps, C]."""
+        hist = None
         for i in range(num_steps):
             opt.zero_grad(set_to_none=False)
             loss = loss_fn(masked(state, mask))
-            loss.backward()
+            (loss.sum() if loss.ndim else loss).backward()
             opt.step()
+            if hist is None:
+                hist = torch.empty((num_steps,) + loss.shape,
+                                   dtype=torch.float32, device=loss.device)
             hist[i] = loss.detach()
+        if hist is None:
+            hist = torch.empty(0, dtype=torch.float32,
+                               device=state.body_6d.device)
         return hist
 
     def _run_phase(self, state, opt, target_6d, frame_weights,

@@ -33,8 +33,9 @@ The L-BFGS stages freeze masked variables inside the objective,
 Keypoints may carry a leading clips axis [C, T, 25, 3] (hands and face
 likewise): loss normalization and optimizer state stay per clip (the
 clips' losses are summed, so each clip's gradient is its own), and the
-histories are [C, iters]. The reference's ``mesh=`` sharding of the
-clips axis is not ported.
+histories are [C, iters]. ``mesh=`` spreads the clips axis over
+torch.distributed ranks (parallel/sharding.py): each rank fits its
+contiguous share of the clips and every rank returns all of them.
 """
 from __future__ import annotations
 
@@ -288,7 +289,7 @@ def fit_keypoints(model: SmplxModel, vposer_params: Dict[str, torch.Tensor],
                   config: KeypointFitConfig = KeypointFitConfig(),
                   hand_left: Optional[np.ndarray] = None,
                   hand_right: Optional[np.ndarray] = None,
-                  face: Optional[np.ndarray] = None
+                  face: Optional[np.ndarray] = None, mesh=None
                   ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
     """Fit SMPL-X to OpenPose keypoints for a whole clip at once, on the
     model's device.
@@ -302,9 +303,29 @@ def fit_keypoints(model: SmplxModel, vposer_params: Dict[str, torch.Tensor],
     landmark embedding, which the model must carry).
     Returns ([*lead, 75] canonical params, history dict): per-stage loss
     histories ([iters], or [C, iters]) and the fitted 'jaw' and
-    'expression' (the 75-d layout has no face slots)."""
+    'expression' (the 75-d layout has no face slots).
+
+    mesh: a parallel.sharding.Mesh; with [C, T] keypoints its clips axis
+    of R ranks has each rank fit C / R contiguous clips (the clips never
+    interact), and the parameters and histories of all C are gathered
+    to every rank."""
     if config.optimizer not in ("adam", "lbfgs", "lbfgs_perframe"):
         raise ValueError(f"optimizer={config.optimizer!r}")
+    if mesh is not None and np.ndim(keypoints) == 4 and mesh.size > 1:
+        from fpv4d_torch.parallel import sharding as SH
+        lo, hi = SH.clip_range(mesh, len(keypoints))
+
+        def part(a):
+            return None if a is None else np.asarray(a)[lo:hi]
+
+        def gather(a):
+            return SH.all_gather_clips(torch.as_tensor(
+                a, device=model.v_template.device), mesh).cpu().numpy()
+
+        params, hist = fit_keypoints(model, vposer_params, part(keypoints),
+                                     config, part(hand_left),
+                                     part(hand_right), part(face))
+        return gather(params), {k: gather(v) for k, v in hist.items()}
     dev = model.v_template.device
     kp_np = np.asarray(keypoints, np.float32)
     batched = kp_np.ndim == 4

@@ -89,6 +89,21 @@ def standard_problem(T: int = 900, num_verts: int = 10475,
                            body=body, cam=cam, scene=scene)
 
 
+def fleet_batch(prob: StandardProblem, C: int, seed: int = 0):
+    """The reference's fleet input over the standard problem (bench.py's
+    C-clip fleet): the body tiled C times, clip 0 exact and clips 1..C-1
+    with 0.01 N(0, 1) noise; the cameras tiled; the scene repeated C
+    times and padded by pad_scenes (numpy: the grid cache hashes it).
+    Returns (bodies [C,T,75], cams [C,T,4,4], scenes [C,M,3])."""
+    from fpv4d_torch.parallel.multi_clip import pad_scenes
+    rng = np.random.RandomState(seed)
+    bodies = np.tile(prob.body[None], (C, 1, 1))
+    bodies[1:] += rng.randn(C - 1, *prob.body.shape).astype(np.float32) \
+        * np.float32(0.01)
+    cams = np.tile(prob.cam[None], (C, 1, 1, 1))
+    return bodies, cams, pad_scenes([prob.scene] * C)
+
+
 def keypoint_problem(model: smplx.SmplxModel, vp: dict, T: int,
                      num_iter: int = 120, noise_px: float = 2.0,
                      seed: int = 1):

@@ -82,6 +82,26 @@ def test_kernel_matches_plain_bit_exactly(cuda_device, P):
     assert torch.equal(qk.grad, qp.grad)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,N", [(70_000, 32), (65_536, 129)])
+def test_kernel_beyond_65535_frames(cuda_device, T, N):
+    """Folded fleets reach 73 clips of 900 frames: more frames than a
+    grid's y axis takes. One launch, bit-exact against the plain version
+    (the last frame included)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randn((T, N, 3), device=cuda_device, generator=gen)
+    cand = torch.randn((T, 192, 3), device=cuda_device, generator=gen)
+    valid = torch.rand((T, 192), device=cuda_device, generator=gen) > 0.3
+    valid[-1] = False
+    before = C.launches
+    d_k, s_k, n_k = C.cand_nn_cuda(q, cand, valid)
+    assert C.launches == before + 1
+    d_p, s_p, n_p = C.cand_nn_plain(q, cand, valid)
+    assert torch.equal(d_k, d_p) and torch.equal(s_k, s_p)
+    assert torch.equal(n_k, n_p)
+    assert bool((d_k[-1] == C.BIG).all())
+
+
 def _near_tie_case(name, device):
     q, cand, valid = _inputs(P=192)
     if name == "sphere, 1 ulp":

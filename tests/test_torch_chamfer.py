@@ -177,3 +177,36 @@ def test_chamfer_tuple_matches_reference(shared):
         clear = _clear(dmin, gap)
         np.testing.assert_array_equal(got[2].numpy()[clear],
                                       np.asarray(want[2])[clear])
+
+
+def test_plain_over_a_clip_axis_matches_per_clip_calls():
+    """Clouds [C, M, 3] (padded as the fleet pads its scenes): each clip
+    searches its own cloud, indices are per clip, the far padding never
+    wins, and values and gradients in x and y equal per-clip calls."""
+    from fpv4d_torch.parallel.multi_clip import pad_scenes
+    rng = np.random.RandomState(21)
+    x = rng.randn(2, 3, 40, 3).astype(np.float32)
+    y = pad_scenes([rng.randn(300, 3).astype(np.float32),
+                    rng.randn(200, 3).astype(np.float32) + 0.5])
+    g = torch.as_tensor(rng.randn(2, 3, 40).astype(np.float32))
+    xt = torch.tensor(x, requires_grad=True)
+    yt = torch.tensor(y, requires_grad=True)
+    d, i = K.nn_distance(xt, yt)
+    assert d.shape == i.shape == (2, 3, 40)
+    assert int(i[1].max()) < 200                   # padding never wins
+    (d * g).sum().backward()
+    for c in range(2):
+        xc = torch.tensor(x[c], requires_grad=True)
+        yc = torch.tensor(y[c], requires_grad=True)
+        dc, ic = K.nn_distance(xc, yc)
+        (dc * g[c]).sum().backward()
+        assert torch.equal(d[c].detach(), dc.detach())
+        assert torch.equal(i[c], ic)
+        assert torch.equal(xt.grad[c], xc.grad)
+        assert torch.equal(yt.grad[c], yc.grad)
+    d_n, i_n = TNN.nn_brute(xt.detach(), yt.detach())
+    assert torch.equal(d_n, d.detach()) and torch.equal(i_n, i)
+    dmin, _, _ = _truth(x[1], y[1][:200])
+    np.testing.assert_allclose(d[1].detach().numpy(), dmin, rtol=1e-6)
+    with pytest.raises(ValueError, match="same C"):
+        K.nn_distance(xt[:1], yt)

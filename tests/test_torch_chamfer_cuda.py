@@ -132,6 +132,34 @@ def test_kernel_matches_plain_on_near_ties(cuda_device, case):
 
 
 @pytest.mark.gpu
+def test_kernel_over_a_clip_axis(cuda_device):
+    """Clouds [C, M, 3] padded with far points (the fleet's scenes), one
+    clip shifted and cut: one launch, each clip bit-exact against the
+    [M, 3] launch on its own padded cloud and the plain version, and
+    the gradient in x exact."""
+    from fpv4d_torch.parallel.multi_clip import pad_scenes
+    x, y = _clouds(813, 5000, 22, B=6)
+    y1 = y[:3001] + np.float32([0.5, 0.0, 0.25])
+    yb = torch.as_tensor(pad_scenes([y, y1]), device=cuda_device)
+    xb = torch.as_tensor(np.stack([x[:3], x[3:] + np.float32(0.3)]),
+                         device=cuda_device)
+    before = K.launches
+    d_k, i_k = K.nn_distance_cuda(xb, yb)
+    assert K.launches == before + 1
+    d_p, i_p = K.nn_distance_plain(xb, yb)
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    assert int(i_k[1].max()) < 3001
+    for c in range(2):
+        d_c, i_c = K.nn_distance_cuda(xb[c], yb[c])
+        assert torch.equal(d_k[c], d_c) and torch.equal(i_k[c], i_c)
+    xk = xb.clone().requires_grad_(True)
+    xp = xb.clone().requires_grad_(True)
+    K.nn_distance(xk, yb)[0].sum().backward()
+    K.nn_distance_ref(xp, yb)[0].sum().backward()
+    assert torch.equal(xk.grad, xp.grad)
+
+
+@pytest.mark.gpu
 def test_rechecks_must_fit_the_queries(cuda_device):
     x, y = _clouds(5, 9, 19)
     with pytest.raises(ValueError):

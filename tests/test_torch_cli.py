@@ -284,3 +284,55 @@ def test_contact_ids_match_reference(tmp_path):
     np.testing.assert_array_equal(
         TC.contact_ids(str(tmp_path / "segs"), ("L_Leg",), 2000),
         JC.contact_ids(str(tmp_path / "segs"), ("L_Leg",), 2000))
+
+
+def _two_clips(clip_dir, root):
+    """tests/test_cli.py's test_cli_multiopt layout: two clip directories
+    sharing the fixture's body_gen, scene and camerapose.txt."""
+    import shutil
+    dirs = []
+    for name in ("clipA", "clipB"):
+        c = root / name
+        shutil.copytree(clip_dir / "body_gen", c / "body_gen")
+        shutil.copyfile(clip_dir / "scene.ply", c / "scene.ply")
+        shutil.copyfile(clip_dir / "camerapose.txt", c / "camerapose.txt")
+        dirs.append(str(c))
+    return dirs + ["--mode", "global", "--iters", "4", "--scene-name",
+                   "scene.ply", "--model", "NONE", "--vposer", "NONE"]
+
+
+def test_multiopt_matches_reference(clip_dir, tmp_path):
+    """The reference's CLI on its own test's arguments (--mesh clips=2,
+    exact brute force off the TPU) against the port's on one rank with
+    --nn-impl brute, at the globalopt test's tolerances."""
+    from fpv4d.cli.multiopt import main as jmain
+    from fpv4d_torch.cli.multiopt import main as tmain
+    args = _two_clips(clip_dir, tmp_path)
+    assert jmain(args + ["--out", str(tmp_path / "j"), "--mesh",
+                         "clips=2"]) == 0
+    assert tmain(args + ["--out", str(tmp_path / "t"), "--nn-impl", "brute",
+                         "--device", "cpu"]) == 0
+    body_err = []
+    for name in ("clipA", "clipB"):
+        jf, tf = _frames(tmp_path / "j" / name), _frames(tmp_path / "t" / name)
+        assert len(tf) == len(jf) == 3
+        for a, b in zip(tf, jf):
+            assert a.keys() == b.keys()
+            np.testing.assert_allclose(a["scale"], b["scale"], atol=1e-5)
+            np.testing.assert_allclose(a["camera_ext"], b["camera_ext"],
+                                       atol=1e-6)
+            body_err += [np.abs(a[k] - b[k]).ravel() for k in TP.SLICES]
+    err = np.concatenate(body_err)
+    assert np.mean(err <= 1e-4) >= 0.99 and err.max() <= 2 * LR
+
+
+def test_multiopt_needs_a_card_and_one_rank(clip_dir, tmp_path, capsys):
+    from fpv4d_torch.cli.multiopt import main as tmain
+    args = _two_clips(clip_dir, tmp_path)
+    if not torch.cuda.is_available():
+        assert tmain(args + ["--out", str(tmp_path / "x")]) == 1
+        assert "no CUDA device" in capsys.readouterr().err
+        assert not (tmp_path / "x").exists()
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        tmain(args + ["--out", str(tmp_path / "y"), "--mesh", "clips=2",
+                      "--device", "cpu"])

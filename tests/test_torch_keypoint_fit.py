@@ -431,3 +431,21 @@ def test_keypoint_problem_matches_reference():
     np.testing.assert_allclose(kp_t, kp_j, rtol=1e-5, atol=1e-3)
     assert cfg_t.num_iter == cfg_j.num_iter == 7
     assert dataclasses.asdict(cfg_t) == dataclasses.asdict(cfg_j)
+
+
+def test_mesh_places_the_clips_axis(sc):
+    """mesh=: a one-rank mesh fits every clip here (the 2-rank split is
+    tests/test_torch_sharding.py's gloo run); a clip count the clips
+    axis does not divide raises before any rank fits."""
+    from fpv4d_torch.parallel import sharding as SH
+    cfg = TConfig(**dict(CFG, num_iter=3))
+    kp_b = np.stack([sc["kp"], sc["kp"] + np.float32(2.0)])
+    p0, h0 = TKF.fit_keypoints(sc["tmodel"], sc["tvp"], kp_b, cfg)
+    p1, h1 = TKF.fit_keypoints(sc["tmodel"], sc["tvp"], kp_b, cfg,
+                               mesh=SH.make_mesh({"clips": 1}))
+    np.testing.assert_array_equal(p1, p0)
+    for k in h0:
+        np.testing.assert_array_equal(h1[k], h0[k])
+    with pytest.raises(ValueError, match="do not split"):
+        TKF.fit_keypoints(sc["tmodel"], sc["tvp"], np.stack([sc["kp"]] * 3),
+                          cfg, mesh=SH.Mesh({"clips": 2}, rank=0))

@@ -228,3 +228,115 @@ def test_empty_frame_and_saturation_zero_gradient():
     _, _, near = C.cand_nn_plain(torch.as_tensor(q), torch.as_tensor(cand),
                                  torch.as_tensor(valid))
     np.testing.assert_array_equal(near[2].numpy(), q[2])
+
+
+# -- the fleet: batched grids and folded queries --------------------------------
+
+@pytest.fixture
+def numpy_ref_grids(monkeypatch):
+    """The reference's batched grid build on its NumPy per-clip path (the
+    native code may order ties differently), as the port builds."""
+    import functools
+    monkeypatch.setattr(JNN, "build_voxel_grid", functools.partial(
+        JNN.build_voxel_grid, use_native=False))
+
+
+def _fleet_scenes():
+    """Three clips' scenes of different sizes: the second a smaller box."""
+    big = _scene(seed=3)
+    small = (_scene(seed=4, n=100) * 0.5
+             + np.float32([0.3, 0.0, -0.2])).astype(np.float32)
+    return [big, small, big[:250]]
+
+
+def _clip_grid(grid_b, c):
+    return TNN.VoxelGrid(cand_pts=grid_b.cand_pts[c],
+                         cand_idx=grid_b.cand_idx[c],
+                         origin=grid_b.origin[c], dims=grid_b.dims,
+                         h=grid_b.h)
+
+
+@pytest.mark.parametrize("order,h,max_cells", [((0, 1, 2), 0.25, 500_000),
+                                               ((1, 0, 2), 0.1, 300)])
+def test_build_voxel_grid_batch_identical(numpy_ref_grids, order, h,
+                                          max_cells):
+    """Shared dims and h, edge-replicated padding; with a cell budget
+    that coarsens h for the big clip after the small one was built, every
+    clip is rebuilt at the common h."""
+    scenes = [_fleet_scenes()[i] for i in order]
+    jb = JNN.build_voxel_grid_batch(scenes, h=h, slots_per_cell=8,
+                                    max_cells=max_cells)
+    tb = TNN.build_voxel_grid_batch(scenes, h=h, slots_per_cell=8,
+                                    max_cells=max_cells)
+    assert tb.dims == jb.dims and tb.h == jb.h
+    assert tb.cand_pts.shape == (3, int(np.prod(tb.dims)), 8, 3)
+    for name in ("cand_pts", "cand_idx", "origin"):
+        np.testing.assert_array_equal(getattr(tb, name).numpy(),
+                                      np.asarray(getattr(jb, name)),
+                                      err_msg=name)
+    if max_cells == 300:
+        assert tb.h > h
+
+
+def _fleet_queries(C=3, T=4, N=24):
+    q = np.stack([_queries(T, N, seed=20 + c) for c in range(C)])
+    # beyond the small clip's box (inside the big clips' boxes)
+    q[1, 0, :4] = [[1.9, -0.8, 1.9], [-1.9, -0.9, -1.9], [1.9, -0.8, -1.9],
+                   [0.3, 3.0, -0.2]]
+    return q
+
+
+@pytest.mark.parametrize("budget", [64, 3])
+def test_frame_candidates_folded_identical(numpy_ref_grids, budget):
+    """Exact against the reference's fold and against each clip's own
+    rows of the batched grid."""
+    scenes = _fleet_scenes()
+    jb = JNN.build_voxel_grid_batch(scenes, h=0.25, slots_per_cell=8)
+    tb = TNN.build_voxel_grid_batch(scenes, h=0.25, slots_per_cell=8)
+    q = _fleet_queries()
+    C, T, N, _ = q.shape
+    qf = q.reshape(C * T, N, 3)
+    jfc = JNN.frame_candidates_folded(jb, jnp.asarray(qf), C, budget)
+    tfc = TNN.frame_candidates_folded(tb, torch.as_tensor(qf), C, budget)
+    np.testing.assert_array_equal(tfc.cand.numpy(), np.asarray(jfc.cand))
+    np.testing.assert_array_equal(tfc.valid.numpy(), np.asarray(jfc.valid))
+    for c in range(C):
+        one = TNN.frame_candidates(_clip_grid(tb, c), torch.as_tensor(q[c]),
+                                   budget)
+        assert torch.equal(tfc.cand[c * T:(c + 1) * T], one.cand)
+        assert torch.equal(tfc.valid[c * T:(c + 1) * T], one.valid)
+    with pytest.raises(ValueError, match="clips"):
+        TNN.frame_candidates_folded(tb, torch.as_tensor(qf[:-1]), C, budget)
+
+
+def test_grid_min_dist_folded_matches_per_clip(numpy_ref_grids):
+    """The folded exact query against each clip's own query (values and
+    gradients exact), against the reference's vmapped query (rtol 1e-6,
+    FMA contraction), and, beyond the smaller clip's box, against that
+    clip's own single grid at the common h: the edge-replicated cells
+    give the single-clip clamp's answer (zero padding would give 1e4)."""
+    scenes = _fleet_scenes()
+    jb = JNN.build_voxel_grid_batch(scenes, h=0.25, slots_per_cell=8)
+    tb = TNN.build_voxel_grid_batch(scenes, h=0.25, slots_per_cell=8)
+    q = _fleet_queries()
+    C, T, N, _ = q.shape
+    qt = torch.tensor(q.reshape(C * T, N, 3), requires_grad=True)
+    d = TNN.grid_min_dist_folded(tb, qt, C)
+    g = torch.as_tensor(np.random.RandomState(6).randn(C * T, N)
+                        .astype(np.float32))
+    (d * g).sum().backward()
+    for c in range(C):
+        qc = torch.tensor(q[c], requires_grad=True)
+        dc = TNN.grid_min_dist(_clip_grid(tb, c), qc)
+        (dc * g[c * T:(c + 1) * T]).sum().backward()
+        assert torch.equal(d[c * T:(c + 1) * T].detach(), dc.detach())
+        assert torch.equal(qt.grad[c * T:(c + 1) * T], qc.grad)
+    jd = jax.vmap(JNN.grid_min_dist, in_axes=(JNN.grid_axes(jb), 0))(
+        jb, jnp.asarray(q))
+    np.testing.assert_allclose(d.detach().numpy().reshape(C, T, N),
+                               np.asarray(jd), rtol=1e-6, atol=1e-7)
+    own = TNN.build_voxel_grid(scenes[1], h=tb.h, slots_per_cell=8)
+    assert own.dims != tb.dims
+    d_own = TNN.grid_min_dist(own, torch.as_tensor(q[1]))
+    assert torch.equal(d[T:2 * T].detach(), d_own)
+    assert bool((d_own[0, :4] < TNN.BIG).all())

@@ -34,7 +34,8 @@ _EXPECTED = (
     "fpv4d_torch.io.keypoints", "fpv4d_torch.models.motion_gru",
     "fpv4d_torch.solve.lbfgs", "fpv4d_torch.solve.keypoint_fit",
     "fpv4d_torch.solve.frame_fit", "fpv4d_torch.cli.fit",
-    "fpv4d_torch.cli.smooth")
+    "fpv4d_torch.cli.smooth", "fpv4d_torch.parallel.multi_clip",
+    "fpv4d_torch.parallel.sharding", "fpv4d_torch.cli.multiopt")
 
 
 def test_every_port_module_imports_without_jax_or_fpv4d():
@@ -45,5 +46,5 @@ def test_every_port_module_imports_without_jax_or_fpv4d():
     assert res.returncode == 0, res.stderr
     # every subpackage's modules were walked, the CLIs and io included
     names = res.stdout.strip().splitlines()[-1].split()
-    assert len(names) >= 36
+    assert len(names) >= 40
     assert set(_EXPECTED) <= set(names), set(_EXPECTED) - set(names)
