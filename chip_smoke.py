@@ -88,18 +88,43 @@ Phases, each fatal on failure:
                 two clip directories, then again in a one-rank NCCL
                 process group (FPV4D_DISTRIBUTED=1, RANK=0,
                 WORLD_SIZE=1): both exit 0, the second's pkls equal to
-                the first's.
+                the first's;
+ 20. grid       the standard scene's voxel grid by the native builder
+                (csrc/cand_grid.cpp, built with the host compiler) and
+                by the NumPy loop: equal tables, both times; the single
+                solve's grid (setup), the fleet's (phase 15) and every
+                frames rank's were built natively;
+ 21. frames     MultiClipSolver.fit on a {clips: 1, frames: 2} mesh: two
+                ranks spawned on the one card over gloo (NCCL takes one
+                rank per card), each holding 450 of the standard
+                problem's 900 frames: local/grid with the full schedule,
+                held to phase 5's local solve, K1 400 times per rank in
+                local_a; global/brute (40 + 10 steps) and dct/grid
+                (W = 15 windows over 2 ranks: the gathered trajectory;
+                30 + 30 steps), each held to the one-rank fold at the
+                same depth, K2 and K1 counted per rank; the whole leaves
+                equal on both ranks after every phase; fenced seconds
+                per stage beside the one-rank solve's; then K1 and K2
+                at a rank's shapes ([450, 813, 192]; 365,850 x 100,489)
+                bit-exact against their plain versions, with times;
+ 22. multiopt   ``multiopt --mesh clips=1,frames=2`` in the same two
+                ranks, on phase 19's clip directories: both exit 0, the
+                pkls within the CLI tests' tolerances of phase 19's
+                one-process run.
 Every count is set to 0 just before its path runs and read just after.
 The second-to-last lines are a JSON object of kernel results and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Exits
-non-zero, printing no result, when no CUDA device is available.
+non-zero, printing no result, when no CUDA device is available or when
+the fpv4d_torch package is not beside the script.
 """
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -286,12 +311,17 @@ def _run_fit(solver, prob, mode, C, K, expect, label):
     return got[0], got[1], fit_s, hist
 
 
-def _hold_histories(hg, hc, label, what="cuda vs cpu"):
+def _hold_histories(hg, hc, label, what="cuda vs cpu", watch=()):
     """Histories hg against hc (per clip where they are [steps, C]): the
     first loss is taken at the shared initial state, 1e-5 relative (f32
     summation order); later losses 2e-2, because the L1 smoothness terms
     turn last-bit differences of near-zero second differences into
-    +-lr Adam steps."""
+    +-lr Adam steps. A phase in `watch` is held at 2e-2 on its mean and
+    final relative difference, and a step past 2e-2 is printed as such
+    (ROADMAP.md §3 logs it), not raised: where the two runs' model
+    chains differ in their last bits for every frame (a frames split on
+    the card), the skate phase's L1 terms carry them to single-step
+    excursions that no split can remove."""
     if hg.keys() != hc.keys():
         raise AssertionError(f"{label}: phases {list(hg)} vs {list(hc)}")
     k0 = next(iter(hc))
@@ -301,10 +331,25 @@ def _hold_histories(hg, hc, label, what="cuda vs cpu"):
     if not first <= 1e-5:
         raise AssertionError(f"{label}: first losses disagree ({what})")
     for k in hc:
-        rel = float(np.max(np.abs(hg[k] - hc[k]) / np.abs(hc[k])))
+        rel_steps = np.abs(hg[k] - hc[k]) / np.abs(hc[k])
+        rel = float(np.max(rel_steps))
         print(f"[reference] {label} {k}: max rel diff {what} {rel:.3e}",
               flush=True)
-        if not (np.all(np.isfinite(hg[k])) and rel < 2e-2):
+        if not np.all(np.isfinite(hg[k])):
+            raise AssertionError(f"{label} {k}: non-finite losses")
+        if k not in watch:
+            if not rel < 2e-2:
+                raise AssertionError(f"{label} {k}: histories disagree "
+                                     f"({what})")
+            continue
+        per_step = rel_steps.reshape(len(rel_steps), -1).max(-1)
+        mean, final = float(per_step.mean()), float(per_step[-1])
+        past = int((per_step >= 2e-2).sum())
+        print(f"[reference] {label} {k} (watch): max at step "
+              f"{int(per_step.argmax())} of {len(per_step)}, mean "
+              f"{mean:.3e}, final {final:.3e}; {past} step(s) past 2e-2"
+              + (" (logged in ROADMAP.md §3)" if past else ""), flush=True)
+        if not (mean < 2e-2 and final < 2e-2):
             raise AssertionError(f"{label} {k}: histories disagree ({what})")
 
 
@@ -831,6 +876,7 @@ def _run_fleet(mc, bodies, cams, scenes, mode, C, K, expect, label):
 def _fleet_phases(C, K, prob, dev, local_s, local_hist, n_a, n_dct_b):
     """Phases 15-18. Returns the K1 launches of the local fleet and the
     K2 launches of the global/brute fleet."""
+    from fpv4d_torch.io import native
     from fpv4d_torch.parallel.multi_clip import MultiClipSolver
     from fpv4d_torch.utils.bench_problem import fleet_batch, standard_problem
 
@@ -838,8 +884,14 @@ def _fleet_phases(C, K, prob, dev, local_s, local_hist, n_a, n_dct_b):
     clips = 8
     bodies, cams, scenes = fleet_batch(prob, clips)
     mc = MultiClipSolver(solver=prob.solver)
+    native.builds = 0
     secs, hist, state2, tm2 = _run_fleet(mc, bodies, cams, scenes, "local",
                                          C, K, (n_a, 0), "fleet/local")
+    print(f"[fleet/local] grids: {native.builds} native builds for "
+          f"{clips} clips in {tm2['grids']:.3f} s", flush=True)
+    if native.builds != clips:
+        raise AssertionError("fleet: the grids did not take the native "
+                             "route")
     k1_launches = n_a
     print(f"[fleet/local] per clip {secs / clips:.3f} s = "
           f"{secs / clips / local_s:.3f} x the single local solve "
@@ -911,7 +963,8 @@ def _multiopt_on_card(tmp: Path):
     """Phase 19: the multiopt CLI in a subprocess on two clip
     directories, alone and then in a one-rank NCCL process group
     (FPV4D_DISTRIBUTED=1, RANK=0, WORLD_SIZE=1, a free MASTER_PORT); the
-    second run's pkls against the first's."""
+    second run's pkls against the first's. Returns (the clip
+    directories, the first run's frames per clip)."""
     import socket
     from fpv4d_torch.io import body_pkl
     T = 6
@@ -961,13 +1014,314 @@ def _multiopt_on_card(tmp: Path):
           f"difference {diff:.3e}", flush=True)
     if diff != 0.0:
         raise AssertionError("multiopt: the one-rank NCCL run's pkls differ")
+    return dirs, outs[0]
 
+
+# -- the native grid builder and the frames axis --------------------------------
+
+def _native_grid_phase(prob):
+    """Phase 20: the standard scene's grid by both routes; the tables must
+    be equal (the origin, rounded once from f64 natively and computed in
+    f32 by NumPy, within 1 ulp). Returns (native s, NumPy s)."""
+    from fpv4d_torch.ops import nn as NN
+    s = prob.solver
+    t0 = time.perf_counter()
+    gn = NN.build_voxel_grid(prob.scene, h=s.grid_h,
+                             slots_per_cell=s.grid_slots)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gp = NN.build_voxel_grid(prob.scene, h=s.grid_h,
+                             slots_per_cell=s.grid_slots, use_native=False)
+    t_numpy = time.perf_counter() - t0
+    same = (gn.dims == gp.dims and gn.h == gp.h
+            and torch.equal(gn.cand_idx, gp.cand_idx)
+            and torch.equal(gn.cand_pts, gp.cand_pts))
+    ulps = np.abs(gn.origin.numpy().view(np.int32).astype(np.int64)
+                  - gp.origin.numpy().view(np.int32))
+    print(f"[grid] standard scene ({len(prob.scene)} points, h={s.grid_h}, "
+          f"{s.grid_slots} slots, {int(np.prod(gn.dims))} cells): native "
+          f"{t_native:.4f} s, NumPy {t_numpy:.4f} s; tables equal={same}, "
+          f"origin {int(ulps.max())} ulp apart", flush=True)
+    if not same or ulps.max() > 1:
+        raise AssertionError("the native grid differs from the NumPy grid")
+    return t_native, t_numpy
+
+
+_FRAMES_MESH = {"clips": 1, "frames": 2}
+# the depth of the frames axis's global/brute and dct/grid runs: 40
+# global_a + 10 global_b steps; 30 dct_a + 30 dct_b steps
+_FRAMES_DEPTH = {"global": dict(num_iter=50),
+                 "dct": dict(num_iter_dct=60, dct_split=0.5)}
+
+
+def _frames_config(cfg, mode):
+    """The standard config at mode's frames-run depth."""
+    return replace(cfg, **_FRAMES_DEPTH.get(mode, {}))
+
+
+def _frames_problem(dev, mode):
+    """The standard problem for mode's frames run, at that run's depth
+    (brute force for global, the grid otherwise)."""
+    from fpv4d_torch.utils.bench_problem import standard_problem
+    prob = standard_problem(device=dev, nn_impl="brute" if mode == "global"
+                            else "grid")
+    prob.solver.config = _frames_config(prob.solver.config, mode)
+    return prob
+
+
+def _frames_rank(rank, init_file, out_dir, clip_dirs, device):
+    """Phases 21-22 on one of the two gloo ranks sharing the card: each
+    mode's fenced fit of the standard clip on the frames mesh, its
+    launches and native grid builds, then multiopt on the same mesh.
+    Writes out_dir/rank<r>.pkl."""
+    from fpv4d_torch.cli.multiopt import main as multiopt
+    from fpv4d_torch.io import native
+    from fpv4d_torch.ops import cand_cuda as C
+    from fpv4d_torch.ops import chamfer_cuda as K
+    from fpv4d_torch.parallel import sharding as SH
+    from fpv4d_torch.parallel.multi_clip import MultiClipSolver, pad_scenes
+    dev = torch.device(device)
+    SH.maybe_initialize_distributed(init_method=f"file://{init_file}",
+                                    world_size=2, rank=rank, device=dev,
+                                    backend="gloo")
+    mesh = SH.make_mesh(_FRAMES_MESH)
+    out = {}
+    for mode in ("local", "global", "dct"):
+        prob = _frames_problem(dev, mode)
+        if prob.solver.device != dev:
+            raise AssertionError(f"frames rank {rank} left the card")
+        mc = MultiClipSolver(solver=prob.solver, mesh=mesh)
+        native.builds = 0
+        _reset_counts(C, K)
+        tm = {}
+        t0 = time.perf_counter()
+        state_b, hist = mc.fit(prob.body[None], prob.cam[None],
+                               pad_scenes([prob.scene]), mode=mode,
+                               timings=tm)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[mode] = dict(
+            seconds=time.perf_counter() - t0, hist=hist, timings=tm,
+            launches=(C.launches, K.launches), native_builds=native.builds,
+            spread=dict(mc.whole_leaf_spread),
+            finite=all(bool(torch.isfinite(x).all()) for x in state_b),
+            shapes=[tuple(x.shape) for x in state_b])
+        del prob, mc, state_b
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc = multiopt(clip_dirs + [
+        "--out", os.path.join(out_dir, "multiopt"), "--mode", "global",
+        "--iters", "10", "--scene-name", "scene.ply", "--model", "NONE",
+        "--vposer", "NONE", "--mesh", "clips=1,frames=2", "--device",
+        device])
+    out["multiopt"] = dict(rc=rc, seconds=time.perf_counter() - t0)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _shard_kernels(C, K, prob, dev, L):
+    """K1 and K2 at a frames rank's shapes: the standard problem's first
+    L frames (their compacted candidate tables; their contact vertices
+    against the whole scene), bit-exact against the plain versions, with
+    kernel, plain, library and bound times."""
+    from fpv4d_torch.ops import nn as NN
+    from fpv4d_torch.solve.clip_solve import forward_world
+    solver = prob.solver
+    whole, _, _ = solver.init_state(prob.body, prob.cam)
+    state = whole._replace(body_6d=whole.body_6d[:L],
+                           camera_ext=whole.camera_ext[:L])
+    kw = dict(vertex_subset=solver.contact_vids, prune=solver._contact_prune,
+              with_joints=False)
+    with torch.no_grad():
+        q, _, _ = forward_world(solver.ctx, state, **kw)
+        q_whole = forward_world(solver.ctx, whole, **kw)[0][:L]
+        fc = NN.compact_candidates(q, NN.frame_candidates(
+            solver.grid, q, solver.config.contact_cell_budget),
+            solver.config.contact_compact)
+    # the same frames through the model chain in a call of L frames and in
+    # one of all T: the card's GEMMs round by the call's shape
+    print(f"[frames] contact vertices of frames 0..{L - 1} from a {L}-frame "
+          f"call and from the {len(prob.body)}-frame call: bit-identical="
+          f"{torch.equal(q, q_whole)}, max abs difference "
+          f"{float((q - q_whole).abs().max()):.3e}", flush=True)
+    del q_whole
+    q = q.contiguous()
+    k1_err = _check_k1(C, q, fc.cand, fc.valid, f"frames shard [{L}, N, P]")
+    T, N, P = q.shape[0], q.shape[1], fc.cand.shape[1]
+    ms = _median_ms(lambda: C.cand_nn_cuda(q, fc.cand, fc.valid))
+    plain_ms = _median_ms(lambda: C.cand_nn_plain(q, fc.cand, fc.valid))
+    lib_ms = _median_ms(lambda: torch.cdist(q, fc.cand).min(-1))
+    bound_ms, bound_by = _k1_bound_ms(T, N, P)
+    print(f"[K1] frames shard [{T}, {N}, {P}]: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, cdist+min {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of the "
+          "bound", flush=True)
+    k1 = (k1_err, ms, plain_ms, lib_ms, bound_ms, bound_by)
+    scene = solver.scene
+    k2_err = _check_k2(K, q, scene, f"frames shard [{L}, N] x scene")
+    Q, M = q.numel() // 3, scene.shape[0]
+    ms = _median_ms(lambda: K.nn_distance_cuda(q, scene), reps=10)
+    plain_ms = _median_ms(lambda: K.nn_distance_plain(q, scene), reps=3,
+                          warmup=1)
+    qf = q.reshape(-1, 3)
+
+    def cdist_min():
+        for s in range(0, Q, 8192):
+            torch.cdist(qf[s:s + 8192], scene).min(-1)
+
+    lib_ms = _median_ms(cdist_min, reps=3, warmup=1)
+    bound_ms, bound_by = _k2_bound_ms(Q, M)
+    print(f"[K2] frames shard Q={Q} M={M}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, cdist+min {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of the "
+          "bound", flush=True)
+    del q, fc, qf
+    torch.cuda.empty_cache()
+    return k1, (k2_err, ms, plain_ms, lib_ms, bound_ms, bound_by)
+
+
+def _hold_pkls(got, want, label):
+    """multiopt pkls against another run's, at the CLI tests' tolerances:
+    scale 1e-5, camera_ext 1e-6, body parameters 99% within 1e-4 and all
+    within 2 lr (the L1 terms at exact zeros)."""
+    body_err, worst = [], {}
+    for fa, fb in zip(got, want):
+        if len(fa) != len(fb):
+            raise AssertionError(f"{label}: {len(fa)} pkls vs {len(fb)}")
+        for a, b in zip(fa, fb):
+            for k in a:
+                d = np.abs(np.asarray(a[k], np.float64)
+                           - np.asarray(b[k], np.float64))
+                worst[k] = max(worst.get(k, 0.0), float(d.max()))
+                if k not in ("scale", "camera_ext"):
+                    body_err.append(d.ravel())
+    err = np.concatenate(body_err)
+    print(f"[{label}] max abs difference per key "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }; body "
+          f"within 1e-4: {np.mean(err <= 1e-4):.4f}", flush=True)
+    if not (worst["scale"] <= 1e-5 and worst["camera_ext"] <= 1e-6
+            and np.mean(err <= 1e-4) >= 0.99 and err.max() <= 2 * 0.005):
+        raise AssertionError(f"{label}: pkls outside the tolerance")
+
+
+def _frames_phase(C, K, prob, dev, local_hist, local_seconds, tmp,
+                  clip_dirs, multiopt_alone):
+    """Phases 21-22: two gloo ranks on the card (spawned; a rank that
+    fails fails the phase) run the frames mesh; their results are held
+    to phase 5's solve, to one-rank folds at the same depth and to phase
+    19's multiopt pkls. Returns (K1 launches per rank in local_a, K2
+    launches per rank in global_a, the kernels at a rank's shapes)."""
+    import torch.multiprocessing as mp
+    from fpv4d_torch.io import body_pkl
+    from fpv4d_torch.parallel.multi_clip import MultiClipSolver, pad_scenes
+    out_dir = tmp / "frames"
+    out_dir.mkdir()
+    T = prob.body.shape[0]
+    L = T // _FRAMES_MESH["frames"]
+    t0 = time.perf_counter()
+    mp.spawn(_frames_rank, args=(str(out_dir / "pg"), str(out_dir),
+                                 clip_dirs, str(dev)), nprocs=2, join=True)
+    print(f"[frames] 2 gloo ranks on one card, {T} frames as 2 x {L}: "
+          f"spawned and joined in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    ranks = []
+    for r in range(2):
+        with open(out_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+
+    def depth(mode):
+        cfg = _frames_config(prob.solver.config, mode)
+        n_a = int(cfg.num_iter * cfg.stage_split)
+        n = cfg.num_iter_dct
+        return {"local": (n_a, 0), "global": (0, n_a),
+                "dct": (n - int(n * cfg.dct_split), 0)}[mode]
+
+    for r, res in enumerate(ranks):
+        for mode in ("local", "global", "dct"):
+            m = res[mode]
+            stages = {k: round(v, 3) for k, v in m["timings"].items()
+                      if k != "_fences"}
+            print(f"[frames/{mode}] rank {r}: {m['seconds']:.3f} s, stages "
+                  f"(s) {stages}; K1 launches {m['launches'][0]}, K2 "
+                  f"launches {m['launches'][1]} (expected {depth(mode)}); "
+                  f"native grid builds {m['native_builds']}; whole-leaf "
+                  f"spread per phase {m['spread']}", flush=True)
+            if tuple(m["launches"]) != depth(mode):
+                raise AssertionError(f"frames/{mode} rank {r}: launches")
+            if m["native_builds"] != (0 if mode == "global" else 1):
+                raise AssertionError(f"frames/{mode} rank {r}: the grid did "
+                                     "not take the native route")
+            if any(v != 0.0 for v in m["spread"].values()):
+                raise AssertionError(f"frames/{mode} rank {r}: the whole "
+                                     "leaves' copies parted")
+            if not m["finite"] or m["shapes"][0] != (1, T, 78):
+                raise AssertionError(f"frames/{mode} rank {r}: the final "
+                                     "state is not whole and finite")
+            # the full schedule's phases end below where they began; the
+            # shallow runs are held to the one-rank fold below
+            for k, v in m["hist"].items():
+                if not (np.all(np.isfinite(v)) and (
+                        mode != "local" or np.all(v[-1] < v[0]))):
+                    raise AssertionError(f"frames/{mode} rank {r} {k}: "
+                                         "losses not finite and decreasing")
+    print(f"[frames/local] one-rank solve (phase 5) stages (s) "
+          f"{ {k: round(v, 3) for k, v in local_seconds.items()} }",
+          flush=True)
+    for r, res in enumerate(ranks):
+        _hold_histories({k: v[:, 0] for k, v in res["local"]["hist"].items()},
+                        local_hist, f"frames/local rank {r}",
+                        "2 frames ranks vs single solve",
+                        watch=("local_skate",))
+
+    # the one-rank fold at the same depth
+    for mode in ("global", "dct"):
+        p1 = _frames_problem(dev, mode)
+        _reset_counts(C, K)
+        tm = {}
+        t0 = time.perf_counter()
+        _, h1 = MultiClipSolver(solver=p1.solver).fit(
+            p1.body[None], p1.cam[None], pad_scenes([p1.scene]), mode=mode,
+            timings=tm)
+        torch.cuda.synchronize()
+        if (C.launches, K.launches) != depth(mode):
+            raise AssertionError(f"one-rank {mode}: launches")
+        print(f"[frames/{mode}] one-rank fold: {time.perf_counter() - t0:.3f}"
+              f" s, stages (s) "
+              f"{ {k: round(v, 3) for k, v in tm.items() if k != '_fences'} }",
+              flush=True)
+        for r, res in enumerate(ranks):
+            _hold_histories(res[mode]["hist"], h1, f"frames/{mode} rank {r}",
+                            "2 frames ranks vs one rank")
+        del p1
+        torch.cuda.empty_cache()
+
+    # 22. multiopt on the frames mesh against phase 19's one-process run
+    for r, res in enumerate(ranks):
+        print(f"[multiopt] --mesh clips=1,frames=2 rank {r}: exit "
+              f"{res['multiopt']['rc']} in {res['multiopt']['seconds']:.2f} s",
+              flush=True)
+        if res["multiopt"]["rc"] != 0:
+            raise AssertionError(f"multiopt on the frames mesh: rank {r} "
+                                 f"exited {res['multiopt']['rc']}")
+    got = [[body_pkl.load_frame(str(p)) for p in sorted(
+        (out_dir / "multiopt" / Path(d).name).glob("*.pkl"))]
+        for d in clip_dirs]
+    _hold_pkls(got, multiopt_alone, "multiopt frames=2 vs one process")
+
+    return depth("local")[0], depth("global")[1], _shard_kernels(
+        C, K, prob, dev, L)
 
 
 def main() -> int:
+    if not (ROOT / "fpv4d_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: the fpv4d_torch package is missing beside "
+              f"{Path(__file__).name} (run it from the repository's root)")
+        return 1
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from fpv4d_torch.io import native
     from fpv4d_torch.ops import cand_cuda as C
     from fpv4d_torch.ops import chamfer_cuda as K
     from fpv4d_torch.ops import cuda_build
@@ -984,13 +1338,14 @@ def main() -> int:
     print(f"[device] {name}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # 2. build: one nvcc per source, started together
+    # 2. build: one compiler per source (nvcc for K1 and K2, the host
+    # compiler for the grid builder), started together
     t0 = time.perf_counter()
-    logs = cuda_build.compile_sources([C.SRC, K.SRC])
+    logs = cuda_build.compile_sources([C.SRC, K.SRC, native.SRC])
     C.build()
     K.build()
-    print(f"[build] K1 and K2 built in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    print(f"[build] K1, K2 and the grid builder built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -998,12 +1353,17 @@ def main() -> int:
 
     # the standard problem at full size
     t0 = time.perf_counter()
+    native.builds = 0
     prob = standard_problem(device=dev)
     solver = prob.solver
     print(f"[setup] standard problem in {time.perf_counter() - t0:.2f} s: "
           f"T={prob.body.shape[0]} V={prob.model.num_verts} "
           f"scene={len(prob.scene)} contact N={len(solver.contact_vids)} "
-          f"skate vids={len(solver._skate_vids)}", flush=True)
+          f"skate vids={len(solver._skate_vids)}; native grid builds "
+          f"{native.builds}", flush=True)
+    if native.builds != 1:
+        raise AssertionError("the solver's grid did not take the native "
+                             "route")
 
     # 3. K1 against its plain version on the main path's tables
     state, _, _ = solver.init_state(prob.body, prob.cam)
@@ -1110,6 +1470,7 @@ def main() -> int:
     # 5. the local path (the main path of the first slice)
     k1_launches, _, local_s, local_hist = _run_fit(
         solver, prob, "local", C, K, (n_a, 0), "local")
+    local_seconds = dict(solver.phase_seconds)
 
     # 6. global: brute-force contact NN (K2), then the grid (K1)
     t0 = time.perf_counter()
@@ -1154,9 +1515,15 @@ def main() -> int:
     k1_fleet_launches, k2_fleet_launches = _fleet_phases(
         C, K, prob, dev, local_s, local_hist, n_a, n_dct_b)
 
-    # 19. multiopt on the card, alone and in a one-rank NCCL group
+    # 19. multiopt on the card, alone and in a one-rank NCCL group; 20.
+    # the native grid; 21-22. the frames axis: two gloo ranks on the card,
+    # then multiopt on their frames mesh against 19's pkls
     with tempfile.TemporaryDirectory() as tmp:
-        _multiopt_on_card(Path(tmp))
+        clip_dirs, multiopt_alone = _multiopt_on_card(Path(tmp))
+        _native_grid_phase(prob)
+        k1_frames_launches, k2_frames_launches, (k1_frames, k2_frames) = \
+            _frames_phase(C, K, prob, dev, local_hist, local_seconds,
+                          Path(tmp), clip_dirs, multiopt_alone)
 
     k1_src = ("fpv4d_torch/csrc/cand_nn.cu", "fpv4d/ops/cand_pallas.py:160")
     k2_src = ("fpv4d_torch/csrc/chamfer_nn.cu",
@@ -1180,7 +1547,11 @@ def main() -> int:
         entry("cand_nn (fleet, 8 clips folded)", k1_src, k1_fleet_launches,
               k1_fleet),
         entry("chamfer_nn (clip axis, 2 clips)", k2_src, k2_fleet_launches,
-              k2_fleet)]}))
+              k2_fleet),
+        entry("cand_nn (frames shard, 450 of 900 frames, per rank)", k1_src,
+              k1_frames_launches, k1_frames),
+        entry("chamfer_nn (frames shard, 450 of 900 frames, per rank)",
+              k2_src, k2_frames_launches, k2_frames)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

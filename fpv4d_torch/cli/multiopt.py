@@ -4,7 +4,7 @@ same arguments, plus --nn-impl and --device).
     python -m fpv4d_torch.cli.multiopt CLIP_DIR [CLIP_DIR ...] \
         --out OUT_ROOT --mode global \
         [--scene-name meshed-poisson.ply] [--camera-name camerapose.txt] \
-        [--frames T] [--mesh clips=N] [--nn-impl grid|brute] \
+        [--frames T] [--mesh clips=R,frames=F] [--nn-impl grid|brute] \
         [--device cuda]
 
 Each CLIP_DIR holds the reference's per-video layout: body_gen pkls, the
@@ -14,11 +14,15 @@ axis, their scenes are padded to a common size and their voxel grids
 batched. Runs on the card (``--device cuda``, the default) and exits 1
 when none is present; ``--device cpu`` runs the kernels' plain versions.
 
-With a process group, each rank solves its share of the clips on its
-own card and rank 0 writes every clip's pkls:
+With a process group, the mesh lays R x F ranks out as clips x frames
+(rank = c F + f): each rank solves its share of the clips' frames on its
+own card (parallel/sharding.py), and rank 0 writes every clip's pkls.
+The default mesh is the reference's, {"clips": min(ranks, clips)}; ranks
+beyond the mesh solve nothing and wait for the others at the end:
 
     FPV4D_DISTRIBUTED=1 torchrun --nproc_per_node=N \
-        -m fpv4d_torch.cli.multiopt CLIP_DIR ... --out OUT --mesh clips=N
+        -m fpv4d_torch.cli.multiopt CLIP_DIR ... --out OUT \
+        --mesh clips=R,frames=F          # R x F = N at most
 """
 from __future__ import annotations
 
@@ -48,9 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frames", type=int, default=None,
                    help="truncate/align all clips to T frames")
     p.add_argument("--mesh", default=None,
-                   help="mesh spec, e.g. clips=4 (default: every rank of "
-                        "the process group on the clip axis; a frames "
-                        "axis above 1 is not ported)")
+                   help="mesh spec, e.g. clips=4 or clips=2,frames=2 "
+                        "(default: min(ranks, clips) ranks on the clip "
+                        "axis); F must divide --frames and leave each rank "
+                        ">= 2 frames")
     p.add_argument("--model", default="./models")
     p.add_argument("--vposer", default="./vposer")
     p.add_argument("--segments", default="./body_segments")
@@ -87,6 +92,7 @@ def main(argv=None) -> int:
     from fpv4d_torch.parallel.multi_clip import MultiClipSolver, pad_scenes
     from fpv4d_torch.solve.clip_solve import ClipSolver
 
+    joined = torch.distributed.is_initialized()
     if SH.maybe_initialize_distributed(device=dev) and dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
 
@@ -138,11 +144,15 @@ def main(argv=None) -> int:
                         contact_vids_right=vids_r, config=cfg,
                         nn_impl=args.nn_impl, sdf=sdf, device=dev)
     axes = (parse_mesh(args.mesh) if args.mesh
-            else {"clips": SH.world_size()})
-    mc = MultiClipSolver(solver=solver, mesh=SH.make_mesh(axes),
-                         frame_axis="frames" if "frames" in axes else None)
-    state_b, hist = mc.fit(bodies, cams, pad_scenes(scenes), mode=args.mode)
-    results = mc.result_params(state_b)
+            else {"clips": min(SH.world_size(), len(args.clips))})
+    mesh = SH.make_mesh(axes)
+    if mesh.member:
+        mc = MultiClipSolver(solver=solver, mesh=mesh,
+                             frame_axis="frames" if "frames" in axes
+                             else None)
+        state_b, hist = mc.fit(bodies, cams, pad_scenes(scenes),
+                               mode=args.mode)
+        results = mc.result_params(state_b)
     if lead:
         for phase, h in hist.items():
             print(f"[fpv4d_torch.multiopt] {phase}: mean loss "
@@ -155,7 +165,9 @@ def main(argv=None) -> int:
             print(f"[fpv4d_torch.multiopt] {name}: {len(paths)} pkls "
                   f"(scale={scale:.4f})", file=sys.stderr)
     if torch.distributed.is_initialized():
-        torch.distributed.destroy_process_group()
+        torch.distributed.barrier()
+        if not joined:
+            torch.distributed.destroy_process_group()
     return 0
 
 

@@ -8,8 +8,8 @@ positional arguments and flags).
 Writes FIT_PATH/smoothed_body/%06d.pkl. Runs on the card (``--device
 cuda``, the default) and exits non-zero when no card is present;
 ``--device cpu`` runs on the CPU. ``--mode motion`` reads the GRU
-checkpoint with torch.load when the file exists (a file that exists but
-cannot be read raises), else uses deterministic stand-in weights.
+checkpoint with torch.load when the file exists, else (or when it
+cannot be read, with a message) uses deterministic stand-in weights.
 """
 from __future__ import annotations
 
@@ -53,15 +53,18 @@ def main(argv=None) -> int:
     elif args.mode == "motion":
         import torch
         from fpv4d_torch.models import motion_gru
+        params = motion_gru.random_params(device=dev)
         if os.path.isfile(args.motion_ckpt):
-            ckpt = torch.load(args.motion_ckpt, map_location="cpu",
-                              weights_only=False)
-            params = motion_gru.params_from_torch_state_dict(
-                ckpt.get("model_state_dict", ckpt), device=dev)
-            print(f"[fpv4d_torch.smooth] GRU ckpt: {args.motion_ckpt}",
-                  file=sys.stderr)
-        else:
-            params = motion_gru.random_params(device=dev)
+            try:
+                ckpt = torch.load(args.motion_ckpt, map_location="cpu",
+                                  weights_only=False)
+                params = motion_gru.params_from_torch_state_dict(
+                    ckpt.get("model_state_dict", ckpt), device=dev)
+                print(f"[fpv4d_torch.smooth] GRU ckpt: {args.motion_ckpt}",
+                      file=sys.stderr)
+            except Exception as e:
+                print(f"[fpv4d_torch.smooth] GRU ckpt load failed ({e}) -> "
+                      "random weights", file=sys.stderr)
         out = frame_fit.fit_sequential_motion(body, params, cfg, device=dev)
     else:
         out = frame_fit.fit_sequential(body, cfg, device=dev)

@@ -1,25 +1,29 @@
-"""Build the hand-written CUDA kernels of ``fpv4d_torch/csrc/``.
+"""Build the hand-written sources of ``fpv4d_torch/csrc/``.
 
-Each source is compiled by nvcc for ``sm_90a`` into a shared library
-with a plain C interface under ``fpv4d_torch/_build/`` (git-ignored),
-named after the source and a hash of its bytes and of the bytes of
-every ``csrc/*.cuh`` header it includes, so an edited source or header
+Each CUDA source (``.cu``) is compiled by nvcc for ``sm_90a``, and each
+host source (``.cpp``, the voxel-grid builder) by the host C++
+compiler, into a shared library with a plain C interface under
+``fpv4d_torch/_build/`` (git-ignored), named after the source and a
+hash of its bytes, of the bytes of every ``csrc/*.cuh`` header it
+includes and of its compiler flags, so an edited source, header or flag
 rebuilds and an unchanged one is built once. ``compile_sources`` starts
-one nvcc per missing library, all together, and waits for them;
+one compiler per missing library, all together, and waits for them;
 ``load_function`` compiles one source if needed, opens it with ctypes
 and declares its entry point. Nothing here runs at import: only a
-kernel's first launch (or an explicit build) needs the CUDA toolkit.
+kernel's first launch (or an explicit build) needs the CUDA toolkit,
+and only the first native grid build needs the host compiler.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import platform
 import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 # ctypes argument types of the kernels' C entry points
 POINTER = ctypes.c_void_p
@@ -31,6 +35,12 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-I", str(CSRC))
+# the host route: GCC's default FMA contraction with FMA instructions
+# on, as the reference's -march=native build has them on the x86-64
+# machines that build it (-march=native itself would tie the library
+# to the building machine's CPU)
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC") + (
+    ("-mfma",) if platform.machine() in ("x86_64", "AMD64") else ())
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+\.cuh)"', re.M)
 
 
@@ -40,6 +50,21 @@ def nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found: the CUDA kernels are built with "
                        "the CUDA toolkit's nvcc")
+
+
+def host_cxx() -> str:
+    for cand in (os.environ.get("CXX"), shutil.which("g++"),
+                 shutil.which("c++")):
+        if cand and shutil.which(cand):
+            return cand
+    raise RuntimeError("no host C++ compiler (g++) found: the voxel-grid "
+                       "builder is built with it")
+
+
+def _command(src: Path, out: Path) -> List[str]:
+    if src.suffix == ".cu":
+        return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [host_cxx(), *HOST_FLAGS, "-o", str(out), str(src)]
 
 
 def _headers(src: Path):
@@ -58,18 +83,22 @@ def _headers(src: Path):
 
 
 def library_path(src: Path) -> Path:
-    """src's library, named after the hash of src and its headers."""
+    """src's library, named after the hash of src, its headers and its
+    compiler flags."""
     h = hashlib.sha256(src.read_bytes())
     for hdr in _headers(src):
         h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS if src.suffix == ".cu"
+                      else HOST_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
 
 
 def compile_sources(srcs: Sequence[Path]) -> Dict[str, str]:
-    """Compile every source whose library is missing, one nvcc process
-    each, all started before any is waited for. Returns each compiled
-    source's compiler output (ptxas' register and spill lines) by file
-    name; raises if any compilation fails."""
+    """Compile every source whose library is missing, one compiler
+    process each, all started before any is waited for. Returns each
+    compiled source's compiler output (for nvcc, ptxas' register and
+    spill lines) by file name; raises if any compilation fails, with the
+    compiler's output."""
     BUILD_DIR.mkdir(exist_ok=True)
     running = []
     for src in srcs:
@@ -77,15 +106,16 @@ def compile_sources(srcs: Sequence[Path]) -> Dict[str, str]:
         if so.exists():
             continue
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                 str(src)], stdout=subprocess.PIPE,
+        cmd = _command(src, tmp)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        running.append((src, so, tmp, proc))
+        running.append((src, so, tmp, cmd, proc))
     logs, failed = {}, []
-    for src, so, tmp, proc in running:
+    for src, so, tmp, cmd, proc in running:
         logs[src.name] = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on {src}:\n{logs[src.name]}")
+            failed.append(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
+                          f"{logs[src.name]}")
         else:
             os.replace(tmp, so)
     if failed:
@@ -93,13 +123,13 @@ def compile_sources(srcs: Sequence[Path]) -> Dict[str, str]:
     return logs
 
 
-def load_function(src: Path, name: str, argtypes: Sequence
-                  ) -> Tuple[Callable[..., int], str]:
+def load_function(src: Path, name: str, argtypes: Sequence,
+                  restype=ctypes.c_int) -> Tuple[Callable[..., int], str]:
     """(C entry point `name` of src's library, declared with `argtypes`
-    and an int return; compiler output), compiling src first if its
-    library is missing (the output is "" when it was not)."""
+    and `restype`; compiler output), compiling src first if its library
+    is missing (the output is "" when it was not)."""
     log = compile_sources([src]).get(src.name, "")
     fn = getattr(ctypes.CDLL(str(library_path(src))), name)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn, log

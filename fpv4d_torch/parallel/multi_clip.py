@@ -8,7 +8,11 @@ whole fleet (grid) or K2 once over the clips' padded scenes (brute).
 Per-clip scenes are padded to a common size with far points that never
 win a nearest-neighbour query; each clip's voxel grid is built from its
 scene without them. A clips axis over torch.distributed ranks gives
-each rank a contiguous share of the clips.
+each rank a contiguous share of the clips, and a frames axis a
+contiguous share of each of those clips' frames (parallel/sharding.py
+FrameShard: a halo of 2 frames, per-clip partial losses, whole leaves'
+gradients summed): init runs on the whole clip, then each rank keeps
+its frames, and the results are gathered over both axes.
 """
 from __future__ import annotations
 
@@ -71,12 +75,13 @@ def _write_back(state_b: ClipState, opt: torch.optim.Adam, sub: ClipState,
 
 @dataclass
 class MultiClipSolver:
-    """Batched clip solving over the clips axis of a mesh (one rank's
-    clips folded into frames; ranks split the clips)."""
+    """Batched clip solving over the clips and frames axes of a mesh (one
+    rank's clips folded into frames; ranks split the clips, and the
+    frames of each clip)."""
     solver: ClipSolver                   # shared model, config, device
     mesh: Optional[SH.Mesh] = None       # None: every rank on the clips
     clip_axis: str = "clips"
-    frame_axis: Optional[str] = "frames"
+    frame_axis: Optional[str] = "frames"     # None: frames never split
     # run the skate phase in sub-batches of this many of a rank's clips
     # (0 = never): the reference's TPU measured the per-clip cost of its
     # skate step rising with the folded batch. Exact: per-clip gradients
@@ -86,13 +91,14 @@ class MultiClipSolver:
     def __post_init__(self):
         if self.mesh is None:
             self.mesh = SH.make_mesh({self.clip_axis: SH.world_size()})
-        if self.frame_axis and self.mesh.axes.get(self.frame_axis, 1) > 1:
-            raise ValueError(f"a {self.frame_axis} axis above 1 is not "
-                             f"ported yet ({SH.FRAMES_AXIS_ITEM})")
         # voxel grids of the last scenes seen, keyed by their content
         self._grids = None
         self.grid_cache_hits = 0
         self.grid_cache_misses = 0
+        # per phase of the last fit, the largest difference between this
+        # frames rank's whole leaves (scale, a whole c_dct) and another
+        # frames rank's copy: 0.0 while the copies move identically
+        self.whole_leaf_spread: Dict[str, float] = {}
 
     def _get_grids(self, scenes) -> Optional[NN.VoxelGrid]:
         """The clips' batched voxel grid, cached by the scenes' CONTENT
@@ -132,8 +138,10 @@ class MultiClipSolver:
         """Run the staged schedule of ClipSolver.fit for every clip at
         once. bodies [C,T,75], camera_exts [C,T,4,4], scenes [C,M,3]
         pre-padded (numpy: the grid cache hashes them). On a clips axis
-        of R ranks each rank solves its C/R clips and every rank returns
-        all of them.
+        of R ranks each rank solves its C/R clips, on a frames axis of F
+        ranks its T/F frames of them (F must divide T, leaving each rank
+        >= 2 frames), and every rank of the mesh returns all of them; a
+        rank outside the mesh raises.
 
         timings: optional dict; each stage is then FENCED (the card
         synchronized after it) and its wall seconds accumulate under
@@ -142,18 +150,22 @@ class MultiClipSolver:
 
         Returns the batched final state and per-phase loss histories
         [steps, C]."""
+        if not self.mesh.member:
+            raise ValueError(f"rank {self.mesh.rank} is outside the mesh "
+                             f"{self.mesh.axes}")
         bodies = np.asarray(bodies, np.float32)
         camera_exts = np.asarray(camera_exts, np.float32)
         scenes = np.asarray(scenes, np.float32)
         lo, hi = SH.clip_range(self.mesh, bodies.shape[0], self.clip_axis)
         state_b, hist = self._fit_fold(bodies[lo:hi], camera_exts[lo:hi],
                                        scenes[lo:hi], mode, timings)
-        if self.mesh.size > 1:
-            state_b = ClipState(*(SH.all_gather_clips(x, self.mesh)
-                                  for x in state_b))
+        if self.mesh.axes.get(self.clip_axis, 1) > 1:
+            state_b = ClipState(*(SH.all_gather_clips(
+                x, self.mesh, clip_axis=self.clip_axis) for x in state_b))
             hist = {k: SH.all_gather_clips(
                 torch.as_tensor(v, device=self.solver.device), self.mesh,
-                dim=1).cpu().numpy() for k, v in hist.items()}
+                dim=1, clip_axis=self.clip_axis).cpu().numpy()
+                for k, v in hist.items()}
         return state_b, hist
 
     def _fit_fold(self, bodies, camera_exts, scenes, mode, timings):
@@ -172,10 +184,18 @@ class MultiClipSolver:
             fences[key] = fences.get(key, 0) + 1
             return out
 
+        # init reads whole clips (a clip-wide outlier mean, the nearest
+        # good frame, the closed-form DCT fit); each rank then keeps its
+        # frames
+        shard = SH.FrameShard.of(self.mesh, bodies.shape[1], cfg.window,
+                                 self.frame_axis)
+        own = slice(shard.lo, shard.hi)
+
         def init():
             state_b, target_b, weights_b = self.init_batch(bodies,
                                                            camera_exts)
-            return (*solver.make_optimizer(state_b), target_b, weights_b)
+            return (*solver.make_optimizer(shard.split_state(state_b)),
+                    target_b[:, own], weights_b[:, own])
 
         state_b, opt, target_b, weights_b = fenced("init", init)
         grid_b = fenced("grids", self._get_grids, scenes)
@@ -200,8 +220,9 @@ class MultiClipSolver:
         C = bodies.shape[0]
         lazy_chunk = (cfg.contact_refresh_steps
                       if solver.nn_impl == "grid" else 0)
-        contact = dict(scenes_b=scenes_b, grid_b=grid_b)
+        contact = dict(scenes_b=scenes_b, grid_b=grid_b, shard=shard)
         hist: Dict[str, np.ndarray] = {}
+        self.whole_leaf_spread = {}
         for phase, steps in schedule:
             if steps <= 0:
                 continue
@@ -210,8 +231,10 @@ class MultiClipSolver:
             lazy_cands = bool(lazy_chunk) and phase in solver._CONTACT_PHASES
             weight_right = None
             if phase == "skate":
-                weight_right = fenced("detect", SH.detect_contact, solver,
-                                      state_b, **contact)
+                # per frame, then the halo frames' weights from the next
+                # frames rank (foot skate reads one)
+                weight_right = fenced("detect", lambda: shard.halo(
+                    SH.detect_contact(solver, state_b, scenes_b, grid_b))[0])
             if lazy_cands or use_sdf:
                 # the single-clip solver's chunks: tables (and the SDF
                 # linearization) rebuilt between chunks, never inside
@@ -233,17 +256,20 @@ class MultiClipSolver:
                   and C % self.skate_clip_chunk == 0
                   and all(opt.state[p] for p in state_b)):
                 h = fenced(phase, self._run_skate_chunked, state_b, opt,
-                           target_b, weights_b, weight_right, steps)
+                           target_b, weights_b, weight_right, steps, shard)
             else:
                 h = fenced(phase, SH.run_phase, solver, phase, state_b, opt,
                            target_b, weights_b, steps,
                            weight_right=weight_right, **contact)
-            hist["local_skate" if phase == "skate" else phase] = \
-                h.cpu().numpy()
-        return ClipState(*(x.detach() for x in state_b)), hist
+            key = "local_skate" if phase == "skate" else phase
+            hist[key] = h.cpu().numpy()
+            self.whole_leaf_spread[key] = shard.whole_leaf_spread(state_b)
+        return (shard.join_state(ClipState(*(x.detach() for x in state_b))),
+                hist)
 
     def _run_skate_chunked(self, state_b, opt, target_b, weights_b,
-                           weight_right, steps: int) -> torch.Tensor:
+                           weight_right, steps: int,
+                           shard: SH.FrameShard) -> torch.Tensor:
         """The skate phase over sequential sub-batches of
         skate_clip_chunk clips, each on a slice of the leaves and of the
         Adam moments from the fleet's shared step count, written back
@@ -255,7 +281,8 @@ class MultiClipSolver:
             sub, sub_opt = _slice_optimizer(state_b, opt, sl)
             hs.append(SH.run_phase(self.solver, "skate", sub, sub_opt,
                                    target_b[sl], weights_b[sl], steps,
-                                   weight_right=weight_right[sl]))
+                                   weight_right=weight_right[sl],
+                                   shard=shard))
             _write_back(state_b, opt, sub, sub_opt, sl)
         for p, q in zip(state_b, sub):
             opt.state[p]["step"].copy_(sub_opt.state[q]["step"])

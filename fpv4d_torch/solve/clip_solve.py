@@ -485,16 +485,24 @@ class ClipSolver:
 
     @staticmethod
     def _run_steps(state: ClipState, opt: torch.optim.Adam, mask: ClipState,
-                   num_steps: int, loss_fn) -> torch.Tensor:
+                   num_steps: int, loss_fn, reduce_grads=None
+                   ) -> torch.Tensor:
         """num_steps Adam steps of loss_fn(masked state) -> per-step
         losses [num_steps] (kept on the device; read once per phase). A
         fleet's loss_fn returns per-clip losses [C]: the step descends
-        their sum and the history is [num_steps, C]."""
+        their sum and the history is [num_steps, C]. reduce_grads, if
+        given, runs between the backward and the step (a frames shard
+        sums its whole leaves' gradients there); a loss that reaches no
+        leaf (a frames rank's share of a term it does not count) has no
+        backward."""
         hist = None
         for i in range(num_steps):
             opt.zero_grad(set_to_none=False)
             loss = loss_fn(masked(state, mask))
-            (loss.sum() if loss.ndim else loss).backward()
+            if loss.requires_grad:
+                (loss.sum() if loss.ndim else loss).backward()
+            if reduce_grads is not None:
+                reduce_grads()
             opt.step()
             if hist is None:
                 hist = torch.empty((num_steps,) + loss.shape,

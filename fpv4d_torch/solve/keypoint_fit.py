@@ -35,7 +35,8 @@ likewise): loss normalization and optimizer state stay per clip (the
 clips' losses are summed, so each clip's gradient is its own), and the
 histories are [C, iters]. ``mesh=`` spreads the clips axis over
 torch.distributed ranks (parallel/sharding.py): each rank fits its
-contiguous share of the clips and every rank returns all of them.
+contiguous share of the clips and every rank returns all of them (a
+frames axis of the mesh splits nothing here).
 """
 from __future__ import annotations
 
@@ -305,22 +306,26 @@ def fit_keypoints(model: SmplxModel, vposer_params: Dict[str, torch.Tensor],
     histories ([iters], or [C, iters]) and the fitted 'jaw' and
     'expression' (the 75-d layout has no face slots).
 
-    mesh: a parallel.sharding.Mesh; with [C, T] keypoints its clips axis
-    of R ranks has each rank fit C / R contiguous clips (the clips never
+    mesh: a parallel.sharding.Mesh; with [C, T] keypoints its first axis
+    (the clips axis, as the reference splits over mesh.axis_names[0]) of
+    R ranks has each rank fit C / R contiguous clips (the clips never
     interact), and the parameters and histories of all C are gathered
-    to every rank."""
+    over that axis to every rank; the ranks along its other axes fit the
+    same clips whole."""
     if config.optimizer not in ("adam", "lbfgs", "lbfgs_perframe"):
         raise ValueError(f"optimizer={config.optimizer!r}")
-    if mesh is not None and np.ndim(keypoints) == 4 and mesh.size > 1:
+    axis = next(iter(mesh.axes)) if mesh is not None else None
+    if np.ndim(keypoints) == 4 and axis and mesh.axes[axis] > 1:
         from fpv4d_torch.parallel import sharding as SH
-        lo, hi = SH.clip_range(mesh, len(keypoints))
+        lo, hi = SH.clip_range(mesh, len(keypoints), axis)
 
         def part(a):
             return None if a is None else np.asarray(a)[lo:hi]
 
         def gather(a):
-            return SH.all_gather_clips(torch.as_tensor(
-                a, device=model.v_template.device), mesh).cpu().numpy()
+            return SH.all_gather_axis(torch.as_tensor(
+                a, device=model.v_template.device), mesh,
+                axis).cpu().numpy()
 
         params, hist = fit_keypoints(model, vposer_params, part(keypoints),
                                      config, part(hand_left),

@@ -167,6 +167,29 @@ def test_fit_and_smooth_match_reference(kp_dir, tmp_path):
                           tmp_path / f"j_{mode}" / "smoothed_body", 1e-5)
 
 
+def test_smooth_motion_unreadable_checkpoint(tmp_path, capsys):
+    """A motion checkpoint of garbage bytes: the CLI prints that the load
+    failed and smooths with the stand-in weights, exactly as without a
+    checkpoint (the reference's fpv4d/cli/smooth.py falls back alike;
+    test_fit_and_smooth_match_reference holds the stand-in run to it)."""
+    from fpv4d_torch.cli.smooth import main as tsmooth
+    gen = str(tmp_path / "gen")
+    JBP.save_clip(gen, (np.random.RandomState(1).randn(4, 75)
+                        * 0.1).astype(np.float32))
+    bad = tmp_path / "garbage.ckp"
+    bad.write_bytes(np.random.RandomState(0).bytes(257))
+    args = ["--iters", "3", "--mode", "motion", "--device", "cpu"]
+    capsys.readouterr()
+    assert tsmooth([gen, str(tmp_path / "t"), "--motion-ckpt", str(bad)]
+                   + args) == 0
+    assert "GRU ckpt load failed" in capsys.readouterr().err
+    assert tsmooth([gen, str(tmp_path / "n"), "--motion-ckpt",
+                    str(tmp_path / "missing.ckp")] + args) == 0
+    assert "GRU ckpt load failed" not in capsys.readouterr().err
+    _assert_same_pkls(tmp_path / "t" / "smoothed_body",
+                      tmp_path / "n" / "smoothed_body", 0.0)
+
+
 @pytest.mark.parametrize("cli", ["fit", "smooth"])
 def test_fit_and_smooth_default_device_needs_a_card(kp_dir, tmp_path, cli,
                                                     capsys):

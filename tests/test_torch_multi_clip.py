@@ -9,9 +9,9 @@ coherent leg segments, so joint-support pruning engages; a small
 per-frame beta variation, so the L1 smoothness terms do not follow
 rounding noise), two clips: clip 0 exact, clip 1 with 0.01 N(0, 1)
 noise, as bench.py builds its fleet. Both packages are handed the same
-grid tables: the reference's batched grid build runs its NumPy
-per-clip path, which the port's reproduces exactly
-(tests/test_torch_nn.py). The reference runs nn_impl="grid" with
+grid tables: both packages build their batched grids on their native
+route, whose tables are identical (tests/test_torch_native.py,
+tests/test_torch_nn.py). The reference runs nn_impl="grid" with
 cand_impl="xla", or nn_impl="xla" for brute force, passed explicitly.
 
 Tolerances are the single-clip parity tolerances and for the same
@@ -21,18 +21,16 @@ within 2 lr; scale 1e-5; camera_ext 1e-6; c_dct 1e-6 (1e-5 in dct
 mode). The port's fleet against the port's per-clip solves on the CPU:
 the same tolerances (measured: equal to the last bit but for ~1e-7 in
 the chunked skate history)."""
-import functools
-
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
 from fpv4d.config import ClipConfig as JConfig
+from fpv4d.io import native as RN
 from fpv4d.models import smplx as jsmplx
 from fpv4d.models import vposer as jvp
 from fpv4d.ops import contact as jcontact
-from fpv4d.ops import nn as JNN
 from fpv4d.ops import sdf as JSDF
 from fpv4d.parallel import multi_clip as JMC
 from fpv4d.parallel import sharding as JSH
@@ -141,15 +139,13 @@ _CASES = {
 
 
 @pytest.mark.parametrize("mode,nn_impl,sdf", sorted(_CASES))
-def test_fleet_matches_reference_fleet(scenario, monkeypatch, mode, nn_impl,
-                                       sdf):
+def test_fleet_matches_reference_fleet(scenario, mode, nn_impl, sdf):
     """local/grid runs the lazy refresh with compaction, the detection
     and the chunked skate; global/brute K2's plain version over the
     padded scenes; dct/grid the hoisted dct_a; global/grid with a floor
     SDF the collision term."""
     sc = scenario
-    monkeypatch.setattr(JNN, "build_voxel_grid", functools.partial(
-        JNN.build_voxel_grid, use_native=False))
+    assert RN.available()
     jmc = JMC.MultiClipSolver(solver=_reference(sc, nn_impl, sdf),
                               mesh=JSH.make_mesh({"clips": 1}),
                               frame_axis=None)
@@ -266,13 +262,23 @@ def test_init_batch_outlier_mean_is_per_clip(scenario):
         assert torch.equal(st.body_6d, state_b.body_6d[c])
 
 
-def test_pad_scenes_and_mesh_checks():
+def test_pad_scenes_and_mesh_checks(scenario):
+    """A frames axis that does not divide the clips' T frames, or leaves
+    a rank fewer than 2 of them, raises before any rank solves; so does
+    a rank outside the mesh."""
     a = np.zeros((5, 3), np.float32)
     b = np.ones((3, 3), np.float32)
     out = TMC.pad_scenes([a, b])
     assert out.shape == (2, 5, 3) and out.dtype == np.float32
     assert np.all(out[1, 3:] == 1e6) and np.all(out[1, :3] == 1.0)
     np.testing.assert_array_equal(out, JMC.pad_scenes([a, b]))
-    with pytest.raises(ValueError, match="item 13"):
-        TMC.MultiClipSolver(solver=None, mesh=TSH.Mesh({"clips": 1,
-                                                        "frames": 2}))
+    sc = scenario
+    args = (sc["bodies"], sc["cams"], sc["scenes"])
+    for frames, match in ((5, "do not split"), (12, "needs >= 2")):
+        mc = TMC.MultiClipSolver(solver=_port(sc), mesh=TSH.Mesh(
+            {"clips": 1, "frames": frames}))
+        with pytest.raises(ValueError, match=match):
+            mc.fit(*args, mode="local")
+    with pytest.raises(ValueError, match="outside the mesh"):
+        TMC.MultiClipSolver(solver=_port(sc), mesh=TSH.Mesh(
+            {"clips": 1}, rank=1)).fit(*args, mode="local")

@@ -58,7 +58,8 @@ def test_numpy_grid_builder_identical():
     scene = _scene(seed=2)
     jg = JNN.build_voxel_grid(scene, h=0.25, slots_per_cell=8,
                               use_native=False)
-    tg = TNN.build_voxel_grid(scene, h=0.25, slots_per_cell=8)
+    tg = TNN.build_voxel_grid(scene, h=0.25, slots_per_cell=8,
+                              use_native=False)
     assert tg.dims == jg.dims and tg.h == jg.h
     np.testing.assert_array_equal(tg.cand_idx.numpy(),
                                   np.asarray(jg.cand_idx))
@@ -235,10 +236,12 @@ def test_empty_frame_and_saturation_zero_gradient():
 @pytest.fixture
 def numpy_ref_grids(monkeypatch):
     """The reference's batched grid build on its NumPy per-clip path (the
-    native code may order ties differently), as the port builds."""
+    native code may order ties differently); the port's builder
+    arguments for its NumPy path, so both sides take the same route."""
     import functools
     monkeypatch.setattr(JNN, "build_voxel_grid", functools.partial(
         JNN.build_voxel_grid, use_native=False))
+    return {"use_native": False}
 
 
 def _fleet_scenes():
@@ -267,7 +270,7 @@ def test_build_voxel_grid_batch_identical(numpy_ref_grids, order, h,
     jb = JNN.build_voxel_grid_batch(scenes, h=h, slots_per_cell=8,
                                     max_cells=max_cells)
     tb = TNN.build_voxel_grid_batch(scenes, h=h, slots_per_cell=8,
-                                    max_cells=max_cells)
+                                    max_cells=max_cells, **numpy_ref_grids)
     assert tb.dims == jb.dims and tb.h == jb.h
     assert tb.cand_pts.shape == (3, int(np.prod(tb.dims)), 8, 3)
     for name in ("cand_pts", "cand_idx", "origin"):
@@ -276,6 +279,26 @@ def test_build_voxel_grid_batch_identical(numpy_ref_grids, order, h,
                                       err_msg=name)
     if max_cells == 300:
         assert tb.h > h
+
+
+@pytest.mark.parametrize("order,h,max_cells", [((0, 1, 2), 0.25, 500_000),
+                                               ((1, 0, 2), 0.1, 300)])
+def test_build_voxel_grid_batch_native_identical(order, h, max_cells):
+    """Both packages' default route, the native builder: the batched
+    tables are identical too (tests/test_torch_native.py holds the
+    per-clip builders equal)."""
+    from fpv4d.io import native as RN
+    assert RN.available()
+    scenes = [_fleet_scenes()[i] for i in order]
+    jb = JNN.build_voxel_grid_batch(scenes, h=h, slots_per_cell=8,
+                                    max_cells=max_cells)
+    tb = TNN.build_voxel_grid_batch(scenes, h=h, slots_per_cell=8,
+                                    max_cells=max_cells)
+    assert tb.dims == jb.dims and tb.h == jb.h
+    for name in ("cand_pts", "cand_idx", "origin"):
+        np.testing.assert_array_equal(getattr(tb, name).numpy(),
+                                      np.asarray(getattr(jb, name)),
+                                      err_msg=name)
 
 
 def _fleet_queries(C=3, T=4, N=24):
@@ -292,7 +315,8 @@ def test_frame_candidates_folded_identical(numpy_ref_grids, budget):
     rows of the batched grid."""
     scenes = _fleet_scenes()
     jb = JNN.build_voxel_grid_batch(scenes, h=0.25, slots_per_cell=8)
-    tb = TNN.build_voxel_grid_batch(scenes, h=0.25, slots_per_cell=8)
+    tb = TNN.build_voxel_grid_batch(scenes, h=0.25, slots_per_cell=8,
+                                    **numpy_ref_grids)
     q = _fleet_queries()
     C, T, N, _ = q.shape
     qf = q.reshape(C * T, N, 3)
@@ -317,7 +341,8 @@ def test_grid_min_dist_folded_matches_per_clip(numpy_ref_grids):
     give the single-clip clamp's answer (zero padding would give 1e4)."""
     scenes = _fleet_scenes()
     jb = JNN.build_voxel_grid_batch(scenes, h=0.25, slots_per_cell=8)
-    tb = TNN.build_voxel_grid_batch(scenes, h=0.25, slots_per_cell=8)
+    tb = TNN.build_voxel_grid_batch(scenes, h=0.25, slots_per_cell=8,
+                                    **numpy_ref_grids)
     q = _fleet_queries()
     C, T, N, _ = q.shape
     qt = torch.tensor(q.reshape(C * T, N, 3), requires_grad=True)
@@ -335,7 +360,8 @@ def test_grid_min_dist_folded_matches_per_clip(numpy_ref_grids):
         jb, jnp.asarray(q))
     np.testing.assert_allclose(d.detach().numpy().reshape(C, T, N),
                                np.asarray(jd), rtol=1e-6, atol=1e-7)
-    own = TNN.build_voxel_grid(scenes[1], h=tb.h, slots_per_cell=8)
+    own = TNN.build_voxel_grid(scenes[1], h=tb.h, slots_per_cell=8,
+                               **numpy_ref_grids)
     assert own.dims != tb.dims
     d_own = TNN.grid_min_dist(own, torch.as_tensor(q[1]))
     assert torch.equal(d[T:2 * T].detach(), d_own)

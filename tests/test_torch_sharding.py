@@ -34,7 +34,7 @@ def test_make_mesh_without_a_process_group():
     assert SH.make_mesh({"clips": 1, "frames": 1}).size == 1
     with pytest.raises(ValueError, match="needs 2 ranks"):
         SH.make_mesh({"clips": 2})
-    with pytest.raises(ValueError, match="item 13"):
+    with pytest.raises(ValueError, match="needs 4 ranks"):
         SH.make_mesh({"clips": 1, "frames": 4})
     with pytest.raises(ValueError):
         SH.make_mesh({"clips": 0})
@@ -43,6 +43,34 @@ def test_make_mesh_without_a_process_group():
     assert SH.clip_range(SH.Mesh({"clips": 2}, rank=1), 4) == (2, 4)
     x = torch.arange(6.0).reshape(3, 2)
     assert SH.all_gather_clips(x, mesh) is x
+
+
+def test_mesh_coordinates_frame_and_window_ranges():
+    """Ranks lie row-major in the order the axes are given (rank = c F +
+    f), as the reference reshapes its devices; a frames axis splits T
+    into contiguous blocks of >= 2 frames; c_dct splits on windows
+    exactly when the window count divides over the frames axis (the
+    reference's clip_batch_shardings rule, tests/test_sharding.py)."""
+    axes = {"clips": 2, "frames": 2}
+    coords = [(SH.Mesh(axes, rank=r).coord("clips"),
+               SH.Mesh(axes, rank=r).coord("frames")) for r in range(4)]
+    assert coords == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    m = SH.Mesh(axes, rank=3)
+    assert m.member and not SH.Mesh(axes, rank=4).member
+    assert SH.clip_range(m, 4) == (2, 4) and SH.frame_range(m, 8) == (4, 8)
+    assert SH.Mesh(axes, rank=3).coord("other") == 0
+    with pytest.raises(ValueError, match="do not split"):
+        SH.frame_range(m, 7)
+    with pytest.raises(ValueError, match="needs >= 2"):
+        SH.frame_range(SH.Mesh({"frames": 4}, rank=0), 4)
+    assert SH.frame_range(SH.Mesh({"clips": 2}, rank=1), 5) == (0, 5)
+    f4 = SH.Mesh({"clips": 2, "frames": 4}, rank=6)
+    assert SH.window_range(f4, 8) == (4, 6)
+    assert SH.window_range(f4, 6) is None
+    assert SH.window_range(SH.Mesh({"clips": 2}, rank=1), 3) == (0, 3)
+    sh = SH.FrameShard.of(SH.Mesh({"clips": 1}), 12, 4)
+    assert (sh.F, sh.lo, sh.hi, sh.dct_split) == (1, 0, 12, False)
+    assert sh.frac(0) == sh.frac(1) == sh.frac(2) == 1.0
 
 
 def test_maybe_initialize_distributed_noop(monkeypatch):
