@@ -110,7 +110,33 @@ Phases, each fatal on failure:
  22. multiopt   ``multiopt --mesh clips=1,frames=2`` in the same two
                 ranks, on phase 19's clip directories: both exit 0, the
                 pkls within the CLI tests' tolerances of phase 19's
-                one-process run.
+                one-process run;
+ 23. render     the world and ego renders at full width on the card
+                (fpv4d_torch/vis: a device rasterizer, no OpenCV or PIL):
+                the standard model (V=10,475, 20,946 faces) and scene
+                (100,489 points) at 1280x720, on a 900-frame clip of
+                phase 5's solved body, scale and camera_ext with the
+                camera 2.5 m from the body; world: 64 fixed-view frames,
+                16 follow, 16 orbit; ego: 32 each with --source smoothed
+                and local, no background. Every frame non-black (share >
+                0.005) with a non-empty body mask; the first and last
+                frame of each kind held against the port's CPU route
+                (>= 99% of pixels exact and within 1 level, the random-
+                mesh tolerance of tests/test_torch_vis.py); ms per frame
+                for the chunked forward, points, mesh and the host PNG
+                encode, frames per second, peak memory;
+ 24. viewer     the interactive viewer's server in a thread on an
+                ephemeral port: /meta, /frame fixed, follow and orbit
+                (each a 720x1280x3 PNG through decode_png), the same
+                bytes again from the memo, 404 on an unknown path;
+ 25. ends       after phase 13's pipeline, ``vis world`` and ``vis ego
+                --source local`` in subprocesses on the card (a PNG per
+                frame), the ``prep`` subcommands that need neither ffmpeg
+                nor cv2 on seeded fixtures (exit 0, outputs equal to what
+                the script computes), and ``vis pack``, ``prep pack``,
+                ``dump`` and ``recode``: exit 1 naming cv2 or ffmpeg where
+                the tool is missing (asserted and printed), else exit 0
+                with the file written.
 Every count is set to 0 just before its path runs and read just after.
 The second-to-last lines are a JSON object of kernel results and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Exits
@@ -280,7 +306,8 @@ def _reset_counts(C, K):
 def _run_fit(solver, prob, mode, C, K, expect, label):
     """Drive fit(mode) with both counts at 0; check finite, decreasing
     per-phase losses and the launches of each kernel. Returns
-    (K1 launches, K2 launches, fit seconds, loss histories)."""
+    (K1 launches, K2 launches, fit seconds, loss histories, (body [T,
+    75], scale, camera_ext [T, 4, 4]) as solved)."""
     _reset_counts(C, K)
     t0 = time.perf_counter()
     final, hist = solver.fit(prob.body, prob.cam, mode=mode)
@@ -308,7 +335,7 @@ def _run_fit(solver, prob, mode, C, K, expect, label):
             and np.all(np.isfinite(cam))):
         raise AssertionError(f"{label}: final parameters not finite / "
                              "wrong shape")
-    return got[0], got[1], fit_s, hist
+    return got[0], got[1], fit_s, hist, (body, scale, cam)
 
 
 def _hold_histories(hg, hc, label, what="cuda vs cpu", watch=()):
@@ -1313,6 +1340,417 @@ def _frames_phase(C, K, prob, dev, local_hist, local_seconds, tmp,
         C, K, prob, dev, L)
 
 
+# -- the pipeline's two ends: rendering, the viewer, vis and prep ------------
+
+def _frame_shares(png_bytes, want: torch.Tensor):
+    """(share of pixels exact, share within 1 level) of a PNG written on
+    the card against a float image [H, W, 3] of the CPU route,
+    quantised as the PNG writer quantises."""
+    from fpv4d_torch.vis.png import decode_png
+    got = decode_png(png_bytes).astype(np.int64)
+    ref = (torch.clamp(want, 0, 1) * 255).to(torch.uint8).numpy()
+    d = np.abs(got - ref.astype(np.int64)).max(-1)
+    return float(np.mean(d == 0)), float(np.mean(d <= 1))
+
+
+def _render_phase(prob, dev, solved, tmp: Path):
+    """Phase 23: the world and ego renders at full width on the card;
+    returns the clip directory for phase 24."""
+    from fpv4d_torch.io import body_pkl
+    from fpv4d_torch.models import smplx
+    from fpv4d_torch.vis import ego_overlay as E
+    from fpv4d_torch.vis import world_view as W
+    from fpv4d_torch.vis.png import decode_png
+    body, scale, cam = solved
+    # phase 5's solved clip, its camera moved 2.5 m from the body along
+    # z (the reference's ego test puts it there): both views hold the
+    # body, which sits on the camera at the solve's translation
+    body = body.copy()
+    body[:, 74] += 2.5
+    clip = tmp / "render_clip"
+    smoothed = clip / "smoothed_body"
+    body_pkl.save_clip(str(smoothed), body, scale=scale, camera_ext=cam,
+                       prefix="")
+    params = [body_pkl.load_frame(str(p))
+              for p in sorted(smoothed.glob("*.pkl"))]
+    cpu_model = smplx.synthetic_model(num_verts=prob.model.num_verts,
+                                      seed=0, sparse_weights=True)
+    cpu_vp = {k: v.cpu() for k, v in prob.vp.items()}
+    scene = prob.scene
+    print(f"[render] clip of {len(params)} frames (scale {scale:.6f}); "
+          f"model V={prob.model.num_verts}, {len(prob.model.faces)} faces; "
+          f"scene {len(scene)} points; 1280x720", flush=True)
+
+    def world(name, n, **kw):
+        out = tmp / f"world_{name}"
+        return (f"world {name}", n, out, "img_{:03d}.png",
+                lambda st: W.render_dir(str(smoothed), prob.model, prob.vp,
+                                        scene, str(out), limit=n,
+                                        stats=st, **kw))
+
+    def ego(source, n):
+        out = clip / f"{source}_vis"
+        return (f"ego {source}", n, out, "{:04d}.png",
+                lambda st: E.render_dir(str(smoothed), prob.model, prob.vp,
+                                        source=source, limit=n, stats=st))
+
+    def cpu_frame(kind, i, n):
+        p = params[i]
+        if kind.startswith("ego"):
+            local = kind == "ego local"
+            return E.render_frame(cpu_model, cpu_vp, p, apply_scale=local,
+                                  draw_joints=local)
+        cams = torch.as_tensor(np.stack([q["camera_ext"]
+                                         for q in params[:n]]))
+        if kind == "world orbit":
+            centers = torch.stack([W.body_to_world(q)[:3, 3]
+                                   for q in params[:n]])
+            center = centers.mean(0)
+            radius = float(max(2.5, 1.8 * float(torch.linalg.vector_norm(
+                centers - center, dim=1).max())))
+            view = W.orbit_view(center, radius, 2.0 * np.pi * i / n)
+        else:
+            view = cams[i] if kind == "world follow" else cams[0]
+        return W.render_frame(cpu_model, cpu_vp, p, scene, view,
+                              cams[:i + 1, :3, 3])
+
+    rows = []
+    for kind, n, out, fmt, run in (world("fixed", 64),
+                                   world("follow", 16, follow=True),
+                                   world("orbit", 16, orbit=True),
+                                   ego("smoothed", 32), ego("local", 32)):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        t0 = time.perf_counter()
+        got = run(stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - resident
+        names = sorted(q.name for q in out.iterdir())
+        if got != n or names != [fmt.format(i) for i in range(n)]:
+            raise AssertionError(f"{kind}: {got} frames, files {names[:3]}")
+        masks = stats["mask_pixels"]
+        if len(masks) != n or min(masks) <= 0:
+            raise AssertionError(f"{kind}: an empty body mask: {masks}")
+        dark = []
+        for i, name in enumerate(names):
+            img = decode_png((out / name).read_bytes())
+            if img.shape != (720, 1280, 3):
+                raise AssertionError(f"{kind} {name}: shape {img.shape}")
+            share = float((img.sum(-1) > 0).mean())
+            if not share > 0.005:
+                dark.append((name, share))
+        if dark:
+            raise AssertionError(f"{kind}: black frames {dark}")
+        parts = {k: stats.get(k, 0.0) * 1e3 / n
+                 for k in ("forward", "points", "mesh", "encode")}
+        held = []
+        for i in (0, n - 1):
+            t1 = time.perf_counter()
+            want = cpu_frame(kind, i, n)
+            exact, within1 = _frame_shares((out / fmt.format(i)).read_bytes(),
+                                           want)
+            held.append((i, exact, within1, time.perf_counter() - t1))
+            if not (exact >= 0.99 and within1 >= 0.99):
+                raise AssertionError(f"{kind} frame {i}: card against the "
+                                     f"CPU route exact {exact:.5f}, within "
+                                     f"1 level {within1:.5f}")
+        rows.append((kind, n, wall, parts, peak, masks))
+        print(f"[render] {kind}: {n} frames in {wall:.3f} s, "
+              f"{n / wall:.2f} frames/s; ms per frame: forward "
+              f"{parts['forward']:.3f}, points {parts['points']:.3f}, "
+              f"mesh {parts['mesh']:.3f}, encode {parts['encode']:.3f}; "
+              f"peak {peak / 2**30:.3f} GiB above {resident / 2**30:.3f} "
+              f"GiB resident; body mask {min(masks)}..{max(masks)} px",
+              flush=True)
+        for i, exact, within1, secs in held:
+            print(f"[render] {kind} frame {i} against the CPU route: exact "
+                  f"{exact:.5f}, within 1 level {within1:.5f} (CPU "
+                  f"{secs:.2f} s)", flush=True)
+    frames = sum(r[1] for r in rows)
+    wall = sum(r[2] for r in rows)
+    print(f"[render] all: {frames} frames in {wall:.3f} s, "
+          f"{frames / wall:.2f} frames/s", flush=True)
+    return clip
+
+
+def _interactive_phase(prob, clip: Path):
+    """Phase 24: the viewer's HTTP server in a thread on an ephemeral
+    port: /meta, /frame in each mode, a memo hit, a 404."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from fpv4d_torch.vis.interactive import InteractiveViewer, make_server
+    from fpv4d_torch.vis.png import decode_png
+    viewer = InteractiveViewer(str(clip / "smoothed_body"), prob.model,
+                               prob.vp, prob.scene)
+    srv = make_server(viewer, port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def get(path):
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(base + path, timeout=120) as r:
+            body = r.read()
+            return r.status, body, time.perf_counter() - t0
+
+    try:
+        code, body, _ = get("/meta")
+        if code != 200 or json.loads(body) != {"num_frames": len(
+                viewer.params)}:
+            raise AssertionError(f"/meta: {code} {body!r}")
+        for mode, i in (("fixed", 10), ("follow", 300), ("orbit", 700)):
+            q = f"/frame?i={i}&mode={mode}&azim=0.8&elev=0.35&zoom=1.0"
+            code, png, secs = get(q)
+            img = decode_png(png)
+            if code != 200 or img.shape != (720, 1280, 3) or not (
+                    (img.sum(-1) > 0).mean() > 0.005):
+                raise AssertionError(f"/frame {mode}: {code} {img.shape}")
+            cached = len(viewer._cache)
+            code2, png2, secs2 = get(q)
+            if code2 != 200 or png2 != png or len(viewer._cache) != cached:
+                raise AssertionError(f"/frame {mode}: no memo hit")
+            print(f"[interactive] {mode} frame {i}: {len(png)} bytes in "
+                  f"{secs * 1e3:.1f} ms, memo hit {secs2 * 1e3:.1f} ms",
+                  flush=True)
+        try:
+            get("/nope")
+            raise AssertionError("an unknown path did not give 404")
+        except urllib.error.HTTPError as e:
+            if e.code != 404:
+                raise AssertionError(f"unknown path: {e.code}") from e
+        print(f"[interactive] /meta {len(viewer.params)} frames; 404 on an "
+              "unknown path", flush=True)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+
+
+def _prep_fixtures(root: Path):
+    """Seeded prep inputs and the outputs the script expects of them:
+    {subcommand: (argv, check(stdout) -> None)}."""
+    from fpv4d_torch.vis.png import decode_png
+    rng = np.random.RandomState(11)
+    images = root / "images"
+    images.mkdir(parents=True)
+    for i in range(100):
+        (images / f"{i:06d}.jpg").write_bytes(rng.bytes(32))
+    kp = root / "kp"
+    kp.mkdir()
+    people = []
+    for _ in range(2):
+        pose = np.stack([rng.uniform(200, 1000, 25), rng.uniform(100, 600, 25),
+                         rng.uniform(0, 1, 25)], 1)
+        people.append({"pose_keypoints_2d": pose.ravel().tolist()})
+    for name in ("b_keypoints.json", "a_keypoints.json"):
+        (kp / name).write_text(json.dumps({"people": people}))
+    lines = ["# header"] * 4
+    poses = {}
+    for i, name in enumerate(["000002.jpg", "000000.jpg", "000001.jpg"]):
+        vals = [repr(float(v)) for v in rng.randn(7)]
+        poses[name] = vals
+        lines += [" ".join([str(i + 1)] + vals + ["1", name]),
+                  "1.5 2.5 -1"]
+    (root / "images.txt").write_text("\n".join(lines) + "\n")
+    pts = rng.randn(20, 3)
+    (root / "points3D.txt").write_text("# points\n" + "".join(
+        f"{i} {x} {y} {z} 1 2 3 0.1 4 5\n" for i, (x, y, z) in enumerate(pts)))
+    res = root / "sx" / "results"
+    for i in range(3):
+        (res / f"{i:03d}").mkdir(parents=True)
+        (res / f"{i:03d}" / "000.pkl").write_bytes(rng.bytes(40))
+    names = sorted(p.name for p in images.iterdir())
+    out = root / "out"
+    out.mkdir()
+
+    def same_bytes(pairs):
+        for got, want in pairs:
+            if got.read_bytes() != want.read_bytes():
+                raise AssertionError(f"{got} differs from {want}")
+
+    def split(_):
+        same_bytes((out / "split" / f"c-{c}" / "images" / f"{j:06d}.jpg",
+                    images / names[33 * c + j])
+                   for c in range(3) for j in range(33))
+
+    def opcmd(stdout):
+        want = ("op.bin --video v.mp4 --write_json js --face --hand "
+                "--write_video o.avi")
+        if stdout.strip() != want:
+            raise AssertionError(f"openpose-cmd printed {stdout!r}")
+
+    def rename(_):
+        same_bytes([(out / "rename" / "000000_keypoints.json",
+                     kp / "a_keypoints.json"),
+                    (out / "rename" / "000001_keypoints.json",
+                     kp / "b_keypoints.json")])
+
+    def filt(_):
+        best = max(people, key=lambda p: sum(p["pose_keypoints_2d"][2::3]))
+        for name in ("a_keypoints.json", "b_keypoints.json"):
+            got = json.loads((out / "filter" / name).read_text())
+            if got["people"] != [best]:
+                raise AssertionError(f"filter kept {got['people']}")
+
+    def masks(_):
+        pose = np.asarray(people[0]["pose_keypoints_2d"],
+                          np.float32).reshape(25, 3)
+        pts2 = pose[pose[:, 2] > 0, :2]
+        x0, y0 = pts2.min(0)
+        x1, y1 = pts2.max(0)
+        want = np.full((720, 1280), 255, np.uint8)
+        want[max(0, int(y0 * 0.8)):min(720, int(y1 * 1.2)),
+             max(0, int(x0 * 0.95)):min(1280, int(x1 * 1.05))] = 0
+        for name in ("a_keypoints.png", "b_keypoints.png"):
+            got = decode_png((out / "masks" / name).read_bytes())
+            if not np.array_equal(got, want):
+                raise AssertionError(f"mask {name} differs")
+
+    def pairs(_):
+        want = "".join(f"{names[i]} {names[i + o]}\n" for i in range(100)
+                       for o in (60, 61, 70, 71, 80, 81, 90, 91)
+                       if i + o < 100)
+        if (out / "pairs.txt").read_text() != want:
+            raise AssertionError("pairs.txt differs")
+
+    def campose(_):
+        want = "".join(f"{n} {' '.join(poses[n])}\n" for n in sorted(poses))
+        if (out / "camerapose.txt").read_text() != want:
+            raise AssertionError("camerapose.txt differs")
+
+    def cloud(_):
+        p32 = pts.astype(np.float32)
+        want = "".join(f"{p[0]} {p[1]} {p[2]}\n" for p in p32)
+        if (out / "cloud.xyz").read_text() != want:
+            raise AssertionError("cloud.xyz differs")
+
+    def flatten(_):
+        same_bytes((out / "flat" / f"body_gen_{i:06d}.pkl",
+                    res / f"{i:03d}" / "000.pkl") for i in range(3))
+
+    return {
+        "split": ([str(images), "--out", str(out / "split"), "--name", "c",
+                   "--clip-len", "33"], split),
+        "openpose-cmd": (["v.mp4", "--binary", "op.bin", "--json-out", "js",
+                          "--video-out", "o.avi"], opcmd),
+        "rename": ([str(kp), "--out", str(out / "rename")], rename),
+        "filter": ([str(kp), "--out", str(out / "filter")], filt),
+        "masks": ([str(kp), "--out", str(out / "masks")], masks),
+        "pairs": ([str(images), "--out", str(out / "pairs.txt")], pairs),
+        "campose": ([str(root / "images.txt"), "--out",
+                     str(out / "camerapose.txt")], campose),
+        "cloud": ([str(root / "points3D.txt"), "--out",
+                   str(out / "cloud.xyz")], cloud),
+        "flatten": ([str(root / "sx"), "--out", str(out / "flat")], flatten),
+    }
+
+
+def _pipeline_ends(tmp: Path):
+    """Phase 25: after phase 13's fit -> smooth -> globalopt, vis world
+    and vis ego --source local on its output, then the prep subcommands
+    on seeded fixtures, each a subprocess (vis on the card by default);
+    vis pack and prep dump / pack / recode exit 1 naming ffmpeg or cv2
+    where the tool is missing, else 0 with their file written. Runs that
+    do not read each other's output run at the same time."""
+    import importlib.util
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    from fpv4d_torch.vis.png import decode_png
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    T = len(list((tmp / "fit_out").glob("*.pkl")))
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    has_ffmpeg = shutil.which("ffmpeg") is not None
+
+    def run(cli, args, want_rc=0, names_tool=None):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", f"fpv4d_torch.cli.{cli}"]
+                             + args, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode != want_rc or (
+                names_tool and names_tool not in res.stderr):
+            for line in (res.stdout + res.stderr).splitlines()[-8:]:
+                print(f"[ends] {cli} {args[0]} | {line}")
+            raise AssertionError(f"{cli} {args[0]} exited {res.returncode}, "
+                                 f"expected {want_rc}"
+                                 + (f" naming {names_tool}" if names_tool
+                                    else ""))
+        return res, time.perf_counter() - t0
+
+    def run_all(jobs):
+        """[(cli, args, want_rc, tool)] at once -> [(stdout, secs)]."""
+        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            futs = [pool.submit(run, *job) for job in jobs]
+            return [(f.result()[0].stdout, f.result()[1]) for f in futs]
+
+    prep = tmp / "prep"
+    checks = _prep_fixtures(prep)
+    video = prep / "clip.mp4"
+    if has_ffmpeg:
+        subprocess.run(["ffmpeg", "-y", "-f", "lavfi", "-i",
+                        "testsrc=duration=1:size=320x240:rate=10",
+                        str(video)], capture_output=True, check=True,
+                       timeout=120)
+    tool_rc, tool = (0, None) if has_ffmpeg else (1, "ffmpeg")
+    assets = ["--model", "NONE", "--vposer", "NONE"]
+    jobs = [("vis", ["world", str(tmp / "fit_out"), "--scene",
+                     str(tmp / "scene.ply"), "--out", str(tmp / "render0")]
+             + assets, 0, None),
+            ("vis", ["ego", str(tmp / "fit_out"), "--source", "local"]
+             + assets, 0, None),
+            ("prep", ["dump", str(video), "--out", str(prep / "dump"),
+                      "--width", "320", "--height", "240"], tool_rc, tool),
+            ("prep", ["recode", str(video), "--out", str(prep / "r.mp4"),
+                      "--fps", "5"], tool_rc, tool)]
+    jobs += [("prep", [cmd] + args, 0, None)
+             for cmd, (args, _) in checks.items()]
+    t0 = time.perf_counter()
+    results = run_all(jobs)
+    wall = time.perf_counter() - t0
+
+    world = sorted((tmp / "render0").glob("*.png"))
+    ego = sorted((tmp / "local_vis").glob("*.png"))
+    if [p.name for p in world] != [f"img_{i:03d}.png" for i in range(T)] \
+            or [p.name for p in ego] != [f"{i:04d}.png" for i in range(T)]:
+        raise AssertionError(f"vis wrote {len(world)} world and {len(ego)} "
+                             f"ego PNGs, expected {T} each")
+    for p in world + ego:
+        if decode_png(p.read_bytes()).shape != (720, 1280, 3):
+            raise AssertionError(f"{p.name}: not a 1280x720 RGB PNG")
+    print(f"[ends] vis world exit 0 in {results[0][1]:.2f} s ({T} PNGs); "
+          f"vis ego --source local exit 0 in {results[1][1]:.2f} s ({T} "
+          "PNGs)", flush=True)
+    for (cmd, (_, check)), (stdout, _) in zip(checks.items(), results[4:]):
+        check(stdout)
+    print(f"[ends] prep {', '.join(checks)}: exit 0, outputs as computed "
+          f"here; {len(jobs)} subprocesses at once in {wall:.2f} s",
+          flush=True)
+    if has_ffmpeg:
+        if not (list((prep / "dump" / "clip" / "images").glob("*.jpg"))
+                and (prep / "r.mp4").is_file()):
+            raise AssertionError("prep dump / recode wrote nothing")
+        print("[ends] prep dump, recode: ffmpeg present, exit 0, frames "
+              "and video written", flush=True)
+    else:
+        print("[ends] prep dump, recode: ffmpeg absent, exit 1 naming "
+              "ffmpeg (asserted)", flush=True)
+
+    outs = [tmp / "render0.avi", tmp / "pack.avi"]
+    run_all([(cli, ["pack", str(tmp / "render0"), "--out", str(out)],
+              0 if has_cv2 else 1, None if has_cv2 else "cv2")
+             for cli, out in zip(("vis", "prep"), outs)])
+    for cli, out in zip(("vis", "prep"), outs):
+        if has_cv2 and not out.is_file():
+            raise AssertionError(f"{cli} pack wrote no {out.name}")
+        print(f"[ends] {cli} pack: " + (
+            f"cv2 present, exit 0, {out.name} written" if has_cv2 else
+            "cv2 absent, exit 1 naming cv2 (asserted)"), flush=True)
+
+
 def main() -> int:
     if not (ROOT / "fpv4d_torch" / "__init__.py").is_file():
         print(f"chip_smoke: the fpv4d_torch package is missing beside "
@@ -1468,7 +1906,7 @@ def main() -> int:
     n_dct_b = cfg.num_iter_dct - int(cfg.num_iter_dct * cfg.dct_split)
 
     # 5. the local path (the main path of the first slice)
-    k1_launches, _, local_s, local_hist = _run_fit(
+    k1_launches, _, local_s, local_hist, local_solved = _run_fit(
         solver, prob, "local", C, K, (n_a, 0), "local")
     local_seconds = dict(solver.phase_seconds)
 
@@ -1478,8 +1916,8 @@ def main() -> int:
     print(f"[setup] brute-force standard problem in "
           f"{time.perf_counter() - t0:.2f} s (no voxel grid: "
           f"{prob_b.solver.grid is None})", flush=True)
-    _, k2_launches, _, _ = _run_fit(prob_b.solver, prob_b, "global", C, K,
-                                 (0, n_a), "global/brute")
+    _, k2_launches, _, _, _ = _run_fit(prob_b.solver, prob_b, "global", C,
+                                       K, (0, n_a), "global/brute")
     del prob_b
     torch.cuda.empty_cache()
     _run_fit(solver, prob, "global", C, K, (n_a, 0), "global/grid")
@@ -1503,9 +1941,10 @@ def main() -> int:
     # 12. the same small stages on the card and on the CPU
     _stages_card_vs_cpu(dev)
 
-    # 13. fit -> smooth -> globalopt on the card
-    with tempfile.TemporaryDirectory() as tmp:
-        _pipeline_on_card(Path(tmp))
+    # 13. fit -> smooth -> globalopt on the card (its directory stays for
+    # phase 25)
+    pipe = tempfile.TemporaryDirectory()
+    _pipeline_on_card(Path(pipe.name))
 
     # 14. both kernels at the fleet's shapes
     k1_fleet, k2_fleet = _fleet_kernels(C, K, solver, prob, dev)
@@ -1524,6 +1963,17 @@ def main() -> int:
         k1_frames_launches, k2_frames_launches, (k1_frames, k2_frames) = \
             _frames_phase(C, K, prob, dev, local_hist, local_seconds,
                           Path(tmp), clip_dirs, multiopt_alone)
+
+    # 23-24. the world and ego renders at full width, the viewer; 25. vis
+    # and prep in subprocesses after phase 13's pipeline
+    t_ends = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = _render_phase(prob, dev, local_solved, Path(tmp))
+        _interactive_phase(prob, clip)
+    _pipeline_ends(Path(pipe.name))
+    pipe.cleanup()
+    print(f"[ends] phases 23-25 in {time.perf_counter() - t_ends:.2f} s",
+          flush=True)
 
     k1_src = ("fpv4d_torch/csrc/cand_nn.cu", "fpv4d/ops/cand_pallas.py:160")
     k2_src = ("fpv4d_torch/csrc/chamfer_nn.cu",

@@ -1,5 +1,4 @@
-"""Per-frame body-parameter pkl contract (port of fpv4d/io/body_pkl.py
-but the SMPLify-X results flattener).
+"""Per-frame body-parameter pkl contract (port of fpv4d/io/body_pkl.py).
 
 Stage handoffs are directories of per-frame pickles: SMPLify-X outputs
 under ``body_gen/results/*/*.pkl`` (or a flat directory of pkls) in,
@@ -75,3 +74,18 @@ def save_smoothed(fit_path: str, body_75: np.ndarray) -> List[str]:
     """The smoother's layout: ``<fit_path>/smoothed_body/%06d.pkl``."""
     return save_clip(os.path.join(fit_path, "smoothed_body"), body_75,
                      prefix="")
+
+
+def flatten_smplifyx_results(src_root: str, dst_dir: str) -> int:
+    """Copy <src_root>/results/*/*.pkl, sorted, to
+    <dst_dir>/body_gen_%06d.pkl byte for byte; returns the count."""
+    os.makedirs(dst_dir, exist_ok=True)
+    pkls = sorted(glob.glob(os.path.join(src_root, "results", "*",
+                                         "*.pkl")))
+    for i, src in enumerate(pkls):
+        with open(src, "rb") as f:
+            data = f.read()
+        with open(os.path.join(dst_dir, f"body_gen_{i:06d}.pkl"),
+                  "wb") as f:
+            f.write(data)
+    return len(pkls)

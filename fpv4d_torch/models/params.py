@@ -39,6 +39,25 @@ VPOSER_SLICE_6D = (19, 51)
 SMOOTH_SLICE_6D = (9, 51)
 
 
+def split(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """[..., 75] -> dict of named slices (views, no copies)."""
+    return {k: x[..., a:b] for k, (a, b) in SLICES.items()}
+
+
+def join(d: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """dict -> [..., 75] in canonical order."""
+    return torch.cat([d[k] for k in SLICES], dim=-1)
+
+
+def smplx_kwargs(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """[..., 75] -> kwargs for the SMPL-X forward, minus body_pose: the
+    32-d VPoser latent is not a joint rotation and must be decoded
+    first, and camera_translation places the camera, not the mesh."""
+    d = split(x)
+    return {k: d[k] for k in ("transl", "global_orient", "betas",
+                              "left_hand_pose", "right_hand_pose")}
+
+
 def split_6d(x: torch.Tensor) -> Dict[str, torch.Tensor]:
     """[..., 78] -> dict of named slices (views) in the 6D layout."""
     return {k: x[..., a:b] for k, (a, b) in SLICES_6D.items()}

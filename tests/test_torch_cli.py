@@ -13,7 +13,11 @@ longer Adam runs part ways): body parameters within 1e-4 (measured
 2*lr (the L1 reconstruction and smoothness terms start at exact zeros,
 where last-bit differences steer single Adam steps by +-lr) with 99%
 of entries within 1e-4; scale within 1e-5 and camera_ext within 1e-6
-(f32 summation order). File formats and integer logic are exact."""
+(f32 summation order). File formats and integer logic are exact. The
+vis CLI (world, ego --source local, pack) runs on 2 frames of the
+10,475-vertex stand-in at 1280x720 against the reference's: the same
+exit codes and file lists, images within the random-mesh tolerance of
+tests/test_torch_vis.py."""
 import json
 import os
 
@@ -359,3 +363,85 @@ def test_multiopt_needs_a_card_and_one_rank(clip_dir, tmp_path, capsys):
     with pytest.raises(ValueError, match="needs 2 ranks"):
         tmain(args + ["--out", str(tmp_path / "y"), "--mesh", "clips=2",
                       "--device", "cpu"])
+
+
+# -- the vis CLI ------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def vis_clip(clip_dir, tmp_path_factory):
+    """A 2-frame smoothed_body/ with scale and camera_ext, beside the
+    globalopt fixture's scene.ply."""
+    rng = np.random.RandomState(9)
+    T = 2
+    body = (rng.randn(T, 75) * 0.1).astype(np.float32)
+    body[:, 74] = 2.5
+    cam_ext = np.tile(np.eye(4, dtype=np.float32), (T, 1, 1))
+    cam_ext[:, 2, 3] = -3.0
+    root = tmp_path_factory.mktemp("vis")
+    JBP.save_clip(str(root / "smoothed_body"), body, scale=1.1,
+                  camera_ext=cam_ext, prefix="")
+    return root, str(clip_dir / "scene.ply")
+
+
+def _same_pngs(a, b, names):
+    from PIL import Image
+    assert sorted(os.listdir(a)) == sorted(os.listdir(b)) == names
+    for n in names:
+        ia = np.asarray(Image.open(os.path.join(a, n))).astype(int)
+        ib = np.asarray(Image.open(os.path.join(b, n))).astype(int)
+        d = np.abs(ia - ib).max(-1)
+        assert np.mean(d <= 1) >= 0.99 and (ib.sum(-1) > 0).mean() > 0.005
+
+
+def test_vis_cli_matches_reference(vis_clip, tmp_path):
+    """vis world and vis ego --source local on the synthetic 10,475-vertex
+    stand-in at 1280x720 (2 frames), then vis pack: the reference's exit
+    codes and file lists, images within the random-mesh tolerance of
+    tests/test_torch_vis.py."""
+    from fpv4d.cli.vis import main as jmain
+    from fpv4d_torch.cli.vis import main as tmain
+    root, scene = vis_clip
+    assets = ["--model", "NONE", "--vposer", "NONE"]
+    smoothed = str(root / "smoothed_body")
+    for name, main, extra in (("j", jmain, []),
+                              ("t", tmain, ["--device", "cpu"])):
+        assert main(["world", smoothed, "--scene", scene, "--out",
+                     str(tmp_path / f"world_{name}")] + assets + extra) == 0
+        assert main(["ego", smoothed, "--source", "local"] + assets
+                    + extra) == 0
+        os.rename(root / "local_vis", tmp_path / f"ego_{name}")
+    _same_pngs(tmp_path / "world_j", tmp_path / "world_t",
+               ["img_000.png", "img_001.png"])
+    _same_pngs(tmp_path / "ego_j", tmp_path / "ego_t",
+               ["0000.png", "0001.png"])
+    (tmp_path / "empty").mkdir()
+    for main in (jmain, tmain):
+        assert main(["pack", str(tmp_path / "world_t")]) == 0
+        assert main(["pack", str(tmp_path / "empty")]) == 1
+    assert (tmp_path / "world_t.mp4").stat().st_size > 0
+
+
+def test_vis_cli_needs_a_card_and_cv2(vis_clip, tmp_path, capsys,
+                                      monkeypatch):
+    from fpv4d_torch.cli.vis import main as tmain
+    root, scene = vis_clip
+    smoothed = str(root / "smoothed_body")
+    with pytest.raises(SystemExit) as e:
+        tmain(["bogus", smoothed])
+    assert e.value.code == 2
+    if not torch.cuda.is_available():
+        for argv in (["world", smoothed, "--scene", scene, "--out",
+                      str(tmp_path / "w")],
+                     ["ego", smoothed, "--source", "local"],
+                     ["interactive", smoothed, "--scene", scene]):
+            assert tmain(argv + ["--model", "NONE", "--vposer", "NONE"]) == 1
+            assert "no CUDA device" in capsys.readouterr().err
+        assert not (tmp_path / "w").exists()
+        assert not (root / "local_vis").exists()
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    from fpv4d_torch.vis.frames import save_png
+    save_png(str(frames / "0000.png"), torch.ones(8, 8, 3) * 0.5)
+    monkeypatch.setitem(__import__("sys").modules, "cv2", None)
+    assert tmain(["pack", str(frames)]) == 1
+    assert "cv2" in capsys.readouterr().err
