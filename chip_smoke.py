@@ -136,7 +136,38 @@ Phases, each fatal on failure:
                 the script computes), and ``vis pack``, ``prep pack``,
                 ``dump`` and ``recode``: exit 1 naming cv2 or ffmpeg where
                 the tool is missing (asserted and printed), else exit 0
-                with the file written.
+                with the file written;
+ 26. FK adjoint the hand-written level-sweep adjoint (models/fk.py
+                rigid_transform) on the standard model's 55-joint tree at
+                B = 900: forward bit-equal to _fwd_impl, gradients within
+                2e-5 of autograd's over the largest magnitude; CUDA-event
+                medians of fwd+bwd for both, and of the local_a model
+                block (forward_world on the contact subset, fwd+bwd) with
+                fk.rigid_transform_prod swapped each way, then the whole
+                local solve on each in turns (autograd, adjoint, adjoint,
+                autograd): seconds per phase, the histories held as
+                phase 21's are (restored after);
+ 27. library    one CVAE Adam step at B = 900 on the card against the
+                CPU (losses rtol 1e-5); ops/chamfer_ref.nn_distance_chunked
+                at the global solve's shape (731,700 x 100,489) against
+                K2: distances within the Gram form's bound 8 u (|x| +
+                R)^2, and where the indices differ the oracle's pick
+                within twice it of K2's; its time beside K2's;
+                steps_until_converged of phase 5's histories;
+ 28. native io  the standard scene through a binary PLY and the native
+                reader (csrc/native_io.cpp, equal arrays, nothing
+                declined); voxel_downsample at 0.05 m; the KD-tree on the
+                scene queried with the 731,700 contact vertices against
+                K2 (distances rtol 1e-6, other indices only at ties);
+                read, downsample, build and query seconds;
+ 29. observe    utils/observability.trace around 5 local_a steps (the
+                Chrome trace names K1's cand_nn_kernel), StageTimer with
+                sync_on, checked raising on a NaN output on the card;
+ 30. accuracy   utils/accuracy_report.run at 300 frames, V = 10,475, Adam
+                and L-BFGS: tests/test_accuracy.py's thresholds (keypoint
+                MPJPE < 60 mm, reprojection < 4x the pixel noise, MPJPE
+                after < before, jitter < 0.3x the noisy init's), K1 once
+                per local_a step of its clip solve, K2 never.
 Every count is set to 0 just before its path runs and read just after.
 The second-to-last lines are a JSON object of kernel results and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Exits
@@ -666,7 +697,7 @@ def _stages_card_vs_cpu(dev):
     from fpv4d_torch.solve.keypoint_fit import fit_keypoints
     from fpv4d_torch.utils.bench_problem import keypoint_problem
     res = []
-    for d in (dev, torch.device("cpu")):
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
         model = smplx.synthetic_model(num_verts=1024, seed=0,
                                       sparse_weights=True, device=d)
         vp = vposer.random_params(0, device=d)
@@ -958,7 +989,7 @@ def _fleet_phases(C, K, prob, dev, local_s, local_hist, n_a, n_dct_b):
     # 18. a small fleet on the card and on the CPU
     for mode, nn_impl in (("local", "grid"), ("global", "brute")):
         hs = []
-        for d in (dev, torch.device("cpu")):
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
             small = standard_problem(device=d, T=12, nn_impl=nn_impl,
                                      **_SMALL)
             b, c, sc = fleet_batch(small, 2)
@@ -1751,6 +1782,301 @@ def _pipeline_ends(tmp: Path):
             "cv2 absent, exit 1 naming cv2 (asserted)"), flush=True)
 
 
+# -- the rest of the library and the ground-truth report -----------------------
+
+def _grad_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the largest |b| (tests/test_fk_vjp.py's rule)."""
+    return float((a - b).abs().max() / (b.abs().max() + 1e-6))
+
+
+def _fk_phase(prob, dev, state, C, K, n_a):
+    """Phase 26: the hand-written FK adjoint against autograd on the
+    standard model's 55-joint tree at B = 900, then both in the local_a
+    model block (forward_world on the contact subset, fwd + bwd), then
+    the whole local solve on each, in turns (autograd, adjoint, adjoint,
+    autograd)."""
+    from fpv4d_torch.core.rotations import aa_to_matrot
+    from fpv4d_torch.models import fk
+    from fpv4d_torch.models.smplx import PARENTS
+    from fpv4d_torch.solve.clip_solve import forward_world
+    B, J = prob.body.shape[0], len(PARENTS)
+    rng = np.random.RandomState(26)
+    rot = aa_to_matrot(torch.as_tensor(
+        rng.randn(B, J, 3).astype(np.float32) * 0.3, device=dev))
+    model = prob.model
+    rest = (model.j_regressor @ model.v_template)[None].expand(B, J, 3)
+    joints = (rest + torch.as_tensor(rng.randn(B, J, 3).astype(np.float32)
+                                     * 0.01, device=dev)).contiguous()
+    cp = torch.as_tensor(rng.randn(B, J, 3).astype(np.float32), device=dev)
+    cr = torch.as_tensor(rng.randn(B, J, 4, 4).astype(np.float32),
+                         device=dev)
+    p_new, r_new = fk.rigid_transform(rot, joints, PARENTS)
+    p_ref, r_ref = fk._fwd_impl(rot, joints, PARENTS)
+    if not (torch.equal(p_new, p_ref) and torch.equal(r_new, r_ref)):
+        raise AssertionError("FK adjoint: forward differs from _fwd_impl")
+
+    def fwd_bwd(fn):
+        a = rot.detach().requires_grad_(True)
+        b = joints.detach().requires_grad_(True)
+        p, r = fn(a, b, PARENTS)
+        return torch.autograd.grad((p * cp).sum() + (r * cr).sum(), (a, b))
+
+    g_new, g_ref = fwd_bwd(fk.rigid_transform), fwd_bwd(fk.rigid_transform_ref)
+    errs = [_grad_err(x, y) for x, y in zip(g_new, g_ref)]
+    print(f"[fk] B={B} J={J}: forward bit-equal; gradient error over the "
+          f"largest magnitude: rot {errs[0]:.3e}, joints {errs[1]:.3e} "
+          f"(limit 2e-5)", flush=True)
+    if max(errs) > 2e-5:
+        raise AssertionError(f"FK adjoint gradients off by {max(errs)}")
+    ms = {name: _median_ms(lambda f=f: fwd_bwd(f))
+          for name, f in (("adjoint", fk.rigid_transform),
+                          ("autograd", fk.rigid_transform_ref))}
+
+    solver = prob.solver
+    body = state.body_6d.detach()
+
+    def block():
+        b = body.clone().requires_grad_(True)
+        verts_w, joints_w, _ = forward_world(
+            solver.ctx, state._replace(body_6d=b),
+            vertex_subset=solver.contact_vids, prune=solver._contact_prune)
+        loss = verts_w.sum() * 1e-6 + joints_w.sum() * 1e-6
+        return torch.autograd.grad(loss, b)[0]
+
+    saved = fk.rigid_transform_prod
+    try:
+        grads = {}
+        for name, f in (("adjoint", fk.rigid_transform),
+                        ("autograd", fk.rigid_transform_ref)):
+            fk.rigid_transform_prod = f
+            grads[name] = block()
+            ms[f"block_{name}"] = _median_ms(block)
+    finally:
+        fk.rigid_transform_prod = saved
+    berr = _grad_err(grads["adjoint"], grads["autograd"])
+    print(f"[fk] fwd+bwd ms (CUDA-event medians): 55-joint FK at B={B}: "
+          f"adjoint {ms['adjoint']:.4f}, autograd {ms['autograd']:.4f}; "
+          f"local_a model block (forward_world, {len(solver.contact_vids)} "
+          f"contact vertices, T={B}): adjoint {ms['block_adjoint']:.4f}, "
+          f"autograd {ms['block_autograd']:.4f}; block gradient error "
+          f"{berr:.3e}", flush=True)
+    if berr > 2e-5:
+        raise AssertionError(f"FK adjoint in the model block off by {berr}")
+
+    fits = {"adjoint": [], "autograd": []}
+    try:
+        for name in ("autograd", "adjoint", "adjoint", "autograd"):
+            fk.rigid_transform_prod = (fk.rigid_transform
+                                       if name == "adjoint"
+                                       else fk.rigid_transform_ref)
+            _, _, fit_s, hist, _ = _run_fit(solver, prob, "local", C, K,
+                                            (n_a, 0), f"local/FK {name}")
+            fits[name].append((fit_s, dict(solver.phase_seconds), hist))
+    finally:
+        fk.rigid_transform_prod = saved
+    _hold_histories(fits["adjoint"][0][2], fits["autograd"][0][2],
+                    "local/FK adjoint", what="adjoint vs autograd",
+                    watch=("local_skate",))
+    for name, runs in fits.items():
+        secs = {k: [round(r[1][k], 3) for r in runs]
+                for k in ("local_a", "local_b", "local_skate")}
+        print(f"[fk] local solve on {name} (two runs): fit "
+              f"{[round(r[0], 3) for r in runs]} s, per phase {secs}",
+              flush=True)
+    return ms
+
+
+def _contact_queries(solver, state):
+    from fpv4d_torch.solve.clip_solve import forward_world
+    with torch.no_grad():
+        q, _, _ = forward_world(solver.ctx, state,
+                                vertex_subset=solver.contact_vids,
+                                prune=solver._contact_prune,
+                                with_joints=False)
+    return q.contiguous()
+
+
+def _library_phase(prob, dev, K, q, k2_ms, local_hist):
+    """Phase 27: a CVAE Adam step on the card against the CPU, the
+    chunked Gram-form oracle against K2 at the global solve's shape, and
+    steps_until_converged of phase 5's histories."""
+    from fpv4d_torch.models import cvae
+    from fpv4d_torch.ops import chamfer_ref
+    from fpv4d_torch.utils.monitor import steps_until_converged
+    B = prob.body.shape[0]
+    rng = np.random.RandomState(27)
+    data = [rng.randn(B, n).astype(np.float32) for n in
+            (cvae.N_DIM_BODY, cvae.N_DIM_SCENE, cvae.LATENT_D)]
+    losses = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        params = {k: v.requires_grad_(True)
+                  for k, v in cvae.random_params(seed=0, device=d).items()}
+        x, zs, eps = (torch.as_tensor(a, device=d) for a in data)
+        opt = torch.optim.Adam(params.values(), lr=1e-3)
+
+        def loss_fn():
+            rec, mu, ls = cvae.forward(params, x, eps, zs)
+            return ((rec - x) ** 2).mean() + cvae.kl_loss(mu, ls)
+
+        before = loss_fn()
+        opt.zero_grad()
+        before.backward()
+        opt.step()
+        with torch.no_grad():
+            losses[where] = (float(before), float(loss_fn()))
+    print(f"[cvae] B={B} Adam step, loss before -> after: card "
+          f"{losses['card']}, cpu {losses['cpu']}", flush=True)
+    if not np.allclose(losses["card"], losses["cpu"], rtol=1e-5, atol=0):
+        raise AssertionError("CVAE step on the card differs from the CPU")
+
+    scene = prob.solver.scene
+    d_c, i_c = chamfer_ref.nn_distance_chunked(q, scene)
+    d_k, i_k = K.nn_distance_cuda(q, scene)
+    # the Gram form |x|^2 + |y|^2 - 2 x.y rounds each of its three terms
+    # and two sums in f32: within 8 u (|x| + R)^2 of the exact value,
+    # u = 2^-24, R the scene's largest |y|
+    R = float(scene.norm(dim=-1).max())
+    bound = 8 * 2.0 ** -24 * (q.norm(dim=-1) + R) ** 2
+    dist_err = (d_c - d_k).abs()
+    diff = i_c != i_k
+    qd = q[diff]
+    exact_c = ((qd - scene[i_c[diff].long()]) ** 2).sum(-1)
+    pick_err = (exact_c - d_k[diff]).abs()
+    ok = bool((dist_err <= bound).all()) and bool(
+        (pick_err <= 2 * bound[diff]).all())
+    ms = _median_ms(lambda: chamfer_ref.nn_distance_chunked(q, scene),
+                    reps=3, warmup=1)
+    print(f"[chamfer_ref] nn_distance_chunked Q={q.numel() // 3} M="
+          f"{scene.shape[0]} (8192 x 8192 chunks): {ms:.4f} ms, K2 "
+          f"{k2_ms:.4f} ms (phase 4); max |d - d_K2| "
+          f"{float(dist_err.max()):.3e} within the Gram bound (max "
+          f"{float(bound.max()):.3e}); indices differ at {int(diff.sum())} "
+          f"queries, each pick within twice the bound of K2's "
+          f"(max {float(pick_err.max()) if len(pick_err) else 0.0:.3e})",
+          flush=True)
+    if not ok:
+        raise AssertionError("the chunked oracle disagrees with K2")
+    conv = {k: (steps_until_converged(v), len(v))
+            for k, v in local_hist.items()}
+    print(f"[monitor] phase 5 histories, steps_until_converged (ftol 2e-9) "
+          f"of steps: {conv}", flush=True)
+    return ms
+
+
+def _native_io_phase(prob, q, K, tmp: Path):
+    """Phase 28: the standard scene through a binary PLY and the native
+    reader, the voxel downsample, and the KD-tree against K2."""
+    from fpv4d_torch.io import native
+    from fpv4d_torch.io.ply import write_ply
+    path = tmp / "scene.ply"
+    write_ply(str(path), prob.scene, binary=True)
+    native.ply_declines = 0
+    t0 = time.perf_counter()
+    got = native.read_ply_vertices(str(path))
+    t_read = time.perf_counter() - t0
+    if native.ply_declines or not np.array_equal(got, prob.scene):
+        raise AssertionError("the scene read back natively differs")
+    t0 = time.perf_counter()
+    ds = native.voxel_downsample(prob.scene, 0.05)
+    t_ds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = native.KdTree(prob.scene)
+    t_build = time.perf_counter() - t0
+    qn = q.reshape(-1, 3).cpu().numpy()
+    t0 = time.perf_counter()
+    d_t, i_t = tree.query(qn)
+    t_query = time.perf_counter() - t0
+    tree.close()
+    d_k, i_k = (a.reshape(-1).cpu().numpy() for a in K.nn_distance_cuda(
+        q, prob.solver.scene))
+    ok = np.allclose(d_t, d_k, rtol=1e-6, atol=0)
+    diff = i_t != i_k
+    # a different index only where the two points tie
+    d_pick = ((qn[diff] - prob.scene[i_t[diff]]) ** 2).sum(-1)
+    ok = ok and np.allclose(d_pick, d_k[diff], rtol=1e-6, atol=0)
+    print(f"[native io] scene PLY ({len(got)} points, binary) read "
+          f"natively in {t_read:.4f} s, equal; voxel_downsample 0.05 m: "
+          f"{len(ds)} points in {t_ds:.4f} s; KdTree build {t_build:.4f} s, "
+          f"{len(qn)} queries {t_query:.4f} s; max rel |d - d_K2| "
+          f"{float((np.abs(d_t - d_k) / np.maximum(d_k, 1e-30)).max()):.3e}"
+          f", indices differ at {int(diff.sum())} (tied)", flush=True)
+    if not ok:
+        raise AssertionError("the KD-tree disagrees with K2")
+    return t_build, t_query
+
+
+def _observability_phase(prob, dev, C, tmp: Path):
+    """Phase 29: torch.profiler around 5 local_a steps (the trace names
+    K1's kernel), StageTimer with sync_on, checked on a NaN output."""
+    from fpv4d_torch.utils import observability as obs
+    s = prob.solver
+    state, target, fw = s.init_state(prob.body, prob.cam)
+    state, opt = s.make_optimizer(state)
+    timer = obs.StageTimer(verbose=False)
+    with timer.stage("refresh", sync_on=state.body_6d):
+        cands = s._refresh_cands(state)
+    s._run_phase(state, opt, target, fw, 1, "local_a", cands)   # warm-up
+    with obs.trace(str(tmp / "trace")) as path:
+        with timer.stage("local_a x5", sync_on=state.body_6d):
+            s._run_phase(state, opt, target, fw, 5, "local_a", cands)
+    size = os.path.getsize(path)
+    with open(path) as f:
+        text = f.read()
+    n_k1 = text.count("cand_nn_kernel")
+    print(f"[observability] trace {size} bytes, cand_nn_kernel named "
+          f"{n_k1} times; StageTimer {timer.summary()}", flush=True)
+    if n_k1 == 0:
+        raise AssertionError("the trace does not name K1's kernel")
+    if sorted(timer.records) != ["local_a x5", "refresh"] or min(
+            timer.summary().values()) <= 0:
+        raise AssertionError("StageTimer did not record both stages")
+    x = -torch.ones(8, device=dev)
+    try:
+        obs.checked(torch.log, x)
+    except FloatingPointError as e:
+        print(f"[observability] checked raised on the card: {e}", flush=True)
+    else:
+        raise AssertionError("checked did not raise on a NaN output")
+    obs.checked(torch.exp, x)
+
+
+def _accuracy_phase(C, K):
+    """Phase 30: the ground-truth recovery report at the paper's 300
+    frames and the standard model's width, both keypoint optimizers;
+    tests/test_accuracy.py's thresholds; K1 launched once per local_a
+    step of its clip solve."""
+    from fpv4d_torch.config import ClipConfig
+    from fpv4d_torch.utils import accuracy_report
+    _reset_counts(C, K)
+    t0 = time.perf_counter()
+    r = accuracy_report.run(frames=300, num_verts=10475, optimizer="both",
+                            device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = (C.launches, K.launches)
+    cfg = ClipConfig(num_iter=r["clip_iters"])
+    want = (int(cfg.num_iter * cfg.stage_split), 0)
+    print(f"[accuracy] T={r['frames']} V=10475 in {secs:.2f} s: "
+          f"{json.dumps(r)}; "
+          f"K1 launches {got[0]}, K2 launches {got[1]} (expected {want})",
+          flush=True)
+    checks = {
+        "keypoint MPJPE < 60 mm": r["keypoint_fit_mpjpe_mm"] < 60,
+        "reprojection < 4x pixel noise":
+            r["keypoint_fit_reproj_px"] < 4 * r["obs_noise_px"],
+        "L-BFGS keypoint MPJPE < 60 mm":
+            r["keypoint_fit"]["lbfgs"]["mpjpe_mm"] < 60,
+        "MPJPE after < before": r["clip_solve_mpjpe_mm_after"]
+            < r["clip_solve_mpjpe_mm_before"],
+        "jitter solved < 0.3x noisy": r["jitter_mm_solved"]
+            < 0.3 * r["jitter_mm_noisy"]}
+    failed = [k for k, v in checks.items() if not v]
+    if failed or got != want:
+        raise AssertionError(f"accuracy report: failed {failed}, launches "
+                             f"{got} (expected {want})")
+    return r, got[0]
+
+
 def main() -> int:
     if not (ROOT / "fpv4d_torch" / "__init__.py").is_file():
         print(f"chip_smoke: the fpv4d_torch package is missing beside "
@@ -1764,7 +2090,6 @@ def main() -> int:
     from fpv4d_torch.ops import chamfer_cuda as K
     from fpv4d_torch.ops import cuda_build
     from fpv4d_torch.ops import nn as NN
-    from fpv4d_torch.solve.clip_solve import forward_world
     from fpv4d_torch.utils.bench_problem import standard_problem
 
     dev = torch.device("cuda")
@@ -1779,10 +2104,11 @@ def main() -> int:
     # 2. build: one compiler per source (nvcc for K1 and K2, the host
     # compiler for the grid builder), started together
     t0 = time.perf_counter()
-    logs = cuda_build.compile_sources([C.SRC, K.SRC, native.SRC])
+    logs = cuda_build.compile_sources([C.SRC, K.SRC, native.SRC,
+                                       native.IO_SRC])
     C.build()
     K.build()
-    print(f"[build] K1, K2 and the grid builder built in "
+    print(f"[build] K1, K2, the grid builder and the native io built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -1805,16 +2131,12 @@ def main() -> int:
 
     # 3. K1 against its plain version on the main path's tables
     state, _, _ = solver.init_state(prob.body, prob.cam)
+    q = _contact_queries(solver, state)
     with torch.no_grad():
-        q, _, _ = forward_world(solver.ctx, state,
-                                vertex_subset=solver.contact_vids,
-                                prune=solver._contact_prune,
-                                with_joints=False)
         fc512 = NN.frame_candidates(solver.grid, q,
                                     solver.config.contact_cell_budget)
         fc192 = NN.compact_candidates(q, fc512,
                                       solver.config.contact_compact)
-    q = q.contiguous()
     err192 = _check_k1(C, q, fc192.cand, fc192.valid, "main [T,N,192]")
     _check_k1(C, q, fc512.cand, fc512.valid, "uncompacted [T,N,512]")
     valid_e = fc192.valid.clone()
@@ -1973,6 +2295,21 @@ def main() -> int:
     _pipeline_ends(Path(pipe.name))
     pipe.cleanup()
     print(f"[ends] phases 23-25 in {time.perf_counter() - t_ends:.2f} s",
+          flush=True)
+
+    # 26. the FK adjoint; 27. the library; 28. the native io; 29.
+    # observability; 30. the ground-truth accuracy report
+    t_lib = time.perf_counter()
+    _fk_phase(prob, dev, state, C, K, n_a)
+    q = _contact_queries(solver, state)
+    _library_phase(prob, dev, K, q, k2_ms, local_hist)
+    with tempfile.TemporaryDirectory() as tmp:
+        _native_io_phase(prob, q, K, Path(tmp))
+        del q
+        torch.cuda.empty_cache()
+        _observability_phase(prob, dev, C, Path(tmp))
+    _accuracy_phase(C, K)
+    print(f"[library] phases 26-30 in {time.perf_counter() - t_lib:.2f} s",
           flush=True)
 
     k1_src = ("fpv4d_torch/csrc/cand_nn.cu", "fpv4d/ops/cand_pallas.py:160")

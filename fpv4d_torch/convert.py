@@ -25,12 +25,17 @@ def smplx_from_numpy(arrays: Mapping[str, np.ndarray],
                       device=device)
 
 
+def _f32_dict(params: Mapping[str, np.ndarray],
+              device) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in params.items()}
+
+
 def vposer_from_numpy(params: Mapping[str, np.ndarray],
                       device="cpu") -> Dict[str, torch.Tensor]:
     """The reference's VPoser dict (w1, b1, w2, b2, w3, b3) -> decoder
     params."""
-    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
-            for k, v in params.items()}
+    return _f32_dict(params, device)
 
 
 def gru_from_numpy(params: Mapping[str, np.ndarray],
@@ -38,8 +43,14 @@ def gru_from_numpy(params: Mapping[str, np.ndarray],
     """The reference's GRU motion-prior dict (models/motion_gru.py: per
     gate [in, out] weights, the n gate's b_hn apart) -> the port's, key
     for key."""
-    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
-            for k, v in params.items()}
+    return _f32_dict(params, device)
+
+
+def cvae_params(params: Mapping[str, np.ndarray],
+                device="cpu") -> Dict[str, torch.Tensor]:
+    """The reference's CVAE dict (models/cvae.py: enc_*/dec_* weights
+    [in, out] and biases) -> the port's, key for key."""
+    return _f32_dict(params, device)
 
 
 def voxel_grid_from_numpy(cand_pts: np.ndarray, cand_idx: np.ndarray,

@@ -37,6 +37,9 @@ def read_ply(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
                 fmt = tok[1]
             elif tok[0] == "element":
                 cur = (tok[1], int(tok[2]), [])
+                if cur[1] < 0:
+                    raise ValueError(f"{path}: element {tok[1]} has a "
+                                     f"negative count {cur[1]}")
                 elements.append(cur)
             elif tok[0] == "property":
                 if tok[1] == "list":
@@ -59,10 +62,23 @@ def read_ply(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     return verts, faces
 
 
+def _remaining(f) -> int:
+    pos = f.tell()
+    end = f.seek(0, 2)
+    f.seek(pos)
+    return end - pos
+
+
 def _read_ascii(f, elements):
     verts = faces = None
     for name, count, props in elements:
-        rows = [f.readline().decode().split() for _ in range(count)]
+        rows = []
+        for _ in range(count):
+            line = f.readline()
+            if not line:
+                raise ValueError(f"element {name} declares {count} rows; "
+                                 f"the file ends after {len(rows)}")
+            rows.append(line.decode().split())
         if name == "vertex":
             idx = {p[0]: i for i, p in enumerate(props)}
             verts = np.asarray(
@@ -81,6 +97,10 @@ def _read_binary(f, elements, endian):
             fields = [(p, np.dtype(endian + d)) for p, d in props
                       if not isinstance(d, tuple)]
             rec = np.dtype([(p, d) for p, d in fields])
+            # a lying header must not drive the allocation
+            if rec.itemsize * count > _remaining(f):
+                raise ValueError(f"element vertex declares {count} "
+                                 "records, more than the file holds")
             data = np.frombuffer(f.read(rec.itemsize * count), dtype=rec,
                                  count=count)
             verts = np.stack([data["x"], data["y"], data["z"]],

@@ -282,14 +282,14 @@ class SmplxModel(nn.Module):
         # 4. forward kinematics (pruned to the ancestor-closed support)
         if tab["kept"] is not None:
             kept = tab["kept"]
-            joints_k, rel_k = fk._fwd_impl(
+            joints_k, rel_k = batch_rigid_transform(
                 rot_mats[:, kept], j_rest[:, kept], tab["parents"])
             joints_world = torch.full((B, NUM_JOINTS, 3), float("nan"),
                                       dtype=dtype, device=dev
                                       ).index_copy(1, kept, joints_k)
             A = rel_k[..., :3, :].reshape(B, len(kept), 12)
         else:
-            joints_world, rel_transforms = fk._fwd_impl(
+            joints_world, rel_transforms = batch_rigid_transform(
                 rot_mats, j_rest, PARENTS)
             A = rel_transforms[..., :3, :].reshape(B, NUM_JOINTS, 12)
 
@@ -308,8 +308,10 @@ class SmplxModel(nn.Module):
 def batch_rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
                           parents: Tuple[int, ...]):
     """Forward kinematics: rot_mats [B,J,3,3], rest joints [B,J,3] ->
-    posed joints [B,J,3] and skinning-relative transforms [B,J,4,4]."""
-    return fk._fwd_impl(rot_mats, joints, tuple(parents))
+    posed joints [B,J,3] and skinning-relative transforms [B,J,4,4],
+    through ``fk.rigid_transform_prod`` (looked up at each call, so a
+    test or a measurement can swap the hand-written adjoint in)."""
+    return fk.rigid_transform_prod(rot_mats, joints, tuple(parents))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
-"""Contact-vertex registry (port of fpv4d/ops/contact.py:22-107): PROX
-body-segment JSONs, or a synthetic registry for tests and benchmarks."""
+"""Contact-vertex registry (port of fpv4d/ops/contact.py): PROX
+body-segment JSONs, or a synthetic registry for tests and benchmarks,
+which ``write_synthetic_segments`` writes out in the segment-file
+format."""
 from __future__ import annotations
 
 import json
@@ -73,6 +75,16 @@ def synthetic_segments(num_verts: int, seed: int = 0,
         ids = rng.choice(num_verts, size=per_part, replace=False)
         out[part] = sorted(int(v) for v in ids)
     return out
+
+
+def write_synthetic_segments(folder: str, num_verts: int,
+                             seed: int = 0) -> None:
+    """Write the synthetic registry as {part}.json files in the
+    reference's segment-file format (verts_ind and faces_ind)."""
+    os.makedirs(folder, exist_ok=True)
+    for part, ids in synthetic_segments(num_verts, seed).items():
+        with open(os.path.join(folder, part + ".json"), "w") as f:
+            json.dump({"verts_ind": ids, "faces_ind": ids}, f)
 
 
 def contact_ids(segments_folder: str, parts: Sequence[str],

@@ -1,0 +1,1 @@
+from fpv4d_torch.utils import monitor, observability, checkpoint

@@ -5,13 +5,19 @@ and a 100,489-point floor scene — with the reference's shapes, seeds
 and defaults (contact_compact=192, skate_subset=1024 body-only); and
 the keypoint-fit target (``keypoint_problem``, port of :81).
 
-The model comes from the port's own ``synthetic_model`` (pure numpy,
-bit-identical to the reference's arrays for the same seed); it is
-rebuilt on every call, never read from a cache.
+The model comes from the port's own ``synthetic_arrays`` (pure numpy,
+bit-identical to the reference's arrays for the same seed), through
+``cached_synthetic_model``: an npz of its arrays under
+``fpv4d_torch/_cache/`` (git-ignored), written once and read after.
+The reference's ``enable_persistent_cache`` points XLA's compilation
+cache at a directory; it has no counterpart here (the port compiles
+nothing but its kernels, which ``fpv4d_torch/_build/`` keeps).
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -33,18 +39,51 @@ class StandardProblem:
     scene: np.ndarray      # [M, 3]
 
 
+def default_cache_dir() -> str:
+    return str(Path(__file__).resolve().parents[1] / "_cache")
+
+
+def cached_synthetic_model(num_verts: int, cache_dir: str, seed: int = 0,
+                           device="cpu") -> smplx.SmplxModel:
+    """The synthetic model with sparse skinning weights (the standard
+    problem's), its arrays cached as ``synthmodel_<V>_swl.npz`` in
+    cache_dir, the reference's name (``_s<seed>`` before ``_swl`` for a
+    seed other than 0, which the reference's name does not tell apart).
+    Unlike the reference's cache, the face landmarks are kept, so a
+    cached model runs the keypoint fit's face stage. The file is
+    written whole under a temporary name and then renamed, so
+    processes that share the directory never read half of one."""
+    os.makedirs(cache_dir, exist_ok=True)
+    tag = "" if seed == 0 else f"_s{seed}"
+    path = os.path.join(cache_dir, f"synthmodel_{num_verts}{tag}_swl.npz")
+    if os.path.exists(path):
+        with np.load(path) as data:
+            arrays = {k: data[k] for k in data.files}
+    else:
+        arrays = smplx.synthetic_arrays(num_verts=num_verts, seed=seed,
+                                        sparse_weights=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+    return smplx.SmplxModel(**arrays, device=device)
+
+
 def standard_problem(T: int = 900, num_verts: int = 10475,
                      scene_pts: int = 100_489, num_iter: int = 500,
                      num_iter_dct: int = 10000, skate_subset: int = 1024,
                      skate_body_only: bool = True,
                      contact_compact: Optional[int] = 192,
                      nn_impl: str = "grid",
-                     device="cuda") -> StandardProblem:
+                     device="cuda",
+                     cache_dir: Optional[str] = None) -> StandardProblem:
     """Build the standard problem at the given sizes on `device`;
-    nn_impl='brute' gives its brute-force contact-NN variant (K2)."""
+    nn_impl='brute' gives its brute-force contact-NN variant (K2). The
+    model is read from (or first written to) cache_dir, by default
+    ``default_cache_dir()``."""
     dev = torch.device(device)
-    model = smplx.synthetic_model(num_verts=num_verts, seed=0,
-                                  sparse_weights=True, device=dev)
+    model = cached_synthetic_model(num_verts, cache_dir or
+                                   default_cache_dir(), device=dev)
     vp = vposer.random_params(seed=0, device=dev)
     rng = np.random.RandomState(0)
 

@@ -41,7 +41,10 @@ _EXPECTED = (
     "fpv4d_torch.vis.raster", "fpv4d_torch.vis.png",
     "fpv4d_torch.vis.ego_overlay", "fpv4d_torch.vis.world_view",
     "fpv4d_torch.vis.interactive", "fpv4d_torch.vis.export",
-    "fpv4d_torch.io.video", "fpv4d_torch.cli.vis", "fpv4d_torch.cli.prep")
+    "fpv4d_torch.io.video", "fpv4d_torch.cli.vis", "fpv4d_torch.cli.prep",
+    "fpv4d_torch.models.cvae", "fpv4d_torch.ops.chamfer_ref",
+    "fpv4d_torch.utils.monitor", "fpv4d_torch.utils.observability",
+    "fpv4d_torch.utils.accuracy_report", "fpv4d_torch.io.native")
 
 _HOST_LIBS = ("cv2", "PIL", "joblib")
 
