@@ -167,8 +167,18 @@ Phases, each fatal on failure:
                 and L-BFGS: tests/test_accuracy.py's thresholds (keypoint
                 MPJPE < 60 mm, reprojection < 4x the pixel noise, MPJPE
                 after < before, jitter < 0.3x the noisy init's), K1 once
-                per local_a step of its clip solve, K2 never.
-Every count is set to 0 just before its path runs and read just after.
+                per local_a step of its clip solve, K2 never;
+ 31. bench      ``python -m fpv4d_torch.bench`` in a subprocess at full
+                width and a cut depth (300 frames, the local and global
+                modes, a 2-clip fleet without its other modes): exits 0
+                with one result line under 2,000 characters, the metric
+                clip_joint_opt_300f_local_mode_wallclock, correct, every
+                compact key, both kernel checks exact, K1 once per
+                contact step of each solve and K2 never (the grid), every
+                share of a phase and of a solve set and in [0, 1]; the JAX
+                package's bench records untouched.
+Every count is set to 0 just before its path runs and read just after
+(phase 31's by the bench itself, around each solve).
 The second-to-last lines are a JSON object of kernel results and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when no CUDA device is available or when
@@ -188,60 +198,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-
-
-def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-# H100 SXM (NVIDIA data sheet): HBM bytes/s; CUDA-core lane
-# instructions/s, 132 SMs x 128 lanes x 1.98 GHz boost clock
-_HBM_BPS = 3.35e12
-_LANE_OPS = 132 * 128 * 1.98e9
-
-
-def _bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / _HBM_BPS * 1e3, ops / _LANE_OPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
-# The least work of a nearest-neighbour search, whatever unit does it:
-# the Gram product can go to the tensor cores, but the running minimum
-# needs at least one CUDA-core instruction per pair. (The 67 TFLOP/s f32
-# peak counts an FMA as two operations, and no unit has to do the
-# difference form's 8 f32 operations per pair.)
-
-
-def _k1_bound_ms(T: int, N: int, P: int):
-    """Least time for K1's work: each input read once, each output
-    written once, and one CUDA-core instruction per (query, candidate)
-    pair."""
-    nbytes = (T * N * 3 * 4 + T * P * 3 * 4 + T * P      # q, cand, valid
-              + T * N * 4 + T * N * 4 + T * N * 3 * 4)   # dist, slot, near
-    return _bound_ms(nbytes, float(T * N * P))
-
-
-def _k2_bound_ms(Q: int, M: int, clips: int = 1):
-    """Least time for K2's work, counted as for K1: x and y read once,
-    dist and idx written once, one instruction per (query, point); with
-    a clip axis, each of `clips` clips has Q queries and an M-point
-    cloud (padding included: the function searches it)."""
-    return _bound_ms(clips * (Q * 3 * 4 + M * 3 * 4 + Q * 4 + Q * 4),
-                     float(clips * Q * M))
+if (ROOT / "fpv4d_torch" / "__init__.py").is_file():   # else main() says so
+    from fpv4d_torch.utils.cost import k1_bound_ms, k2_bound_ms, median_ms
 
 
 def _rechecks(label, fn, shape, dev):
@@ -825,12 +783,12 @@ def _fleet_kernels(C, K, solver, prob, dev):
     k1_err = _check_k1(C, q, fc.cand, fc.valid,
                        f"fleet: {clips} clips folded, first refresh")
     T, N, P = fc.cand.shape[0], q.shape[1], fc.cand.shape[1]
-    ms = _median_ms(lambda: C.cand_nn_cuda(q, fc.cand, fc.valid))
-    plain_ms = _median_ms(lambda: C.cand_nn_plain(q, fc.cand, fc.valid),
-                          reps=5, warmup=1)
-    lib_ms = _median_ms(lambda: torch.cdist(q, fc.cand).min(-1), reps=5,
-                        warmup=1)
-    bound_ms, bound_by = _k1_bound_ms(T, N, P)
+    ms = median_ms(lambda: C.cand_nn_cuda(q, fc.cand, fc.valid))
+    plain_ms = median_ms(lambda: C.cand_nn_plain(q, fc.cand, fc.valid),
+                         reps=5, warmup=1)
+    lib_ms = median_ms(lambda: torch.cdist(q, fc.cand).min(-1), reps=5,
+                       warmup=1)
+    bound_ms, bound_by = k1_bound_ms(T, N, P)
     print(f"[K1] fleet [{T}, {N}, {P}]: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, cdist+min {lib_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of the "
@@ -868,10 +826,10 @@ def _fleet_kernels(C, K, solver, prob, dev):
     print("[K2] clip axis: each clip bit-identical to its own [M, 3] "
           "launch; no padding point won", flush=True)
     Q, M = x[0].numel() // 3, y.shape[1]
-    ms = _median_ms(lambda: K.nn_distance_cuda(x, y), reps=10)
-    single_ms = _median_ms(lambda: K.nn_distance_cuda(x[0], y[0]), reps=10)
-    plain_ms = _median_ms(lambda: K.nn_distance_plain(x, y), reps=1,
-                          warmup=1)
+    ms = median_ms(lambda: K.nn_distance_cuda(x, y), reps=10)
+    single_ms = median_ms(lambda: K.nn_distance_cuda(x[0], y[0]), reps=10)
+    plain_ms = median_ms(lambda: K.nn_distance_plain(x, y), reps=1,
+                         warmup=1)
     xf = x.reshape(2, -1, 3)
 
     def cdist_min():
@@ -879,8 +837,8 @@ def _fleet_kernels(C, K, solver, prob, dev):
             for s in range(0, Q, 8192):
                 torch.cdist(xf[c, s:s + 8192], y[c]).min(-1)
 
-    lib_ms = _median_ms(cdist_min, reps=2, warmup=1)
-    bound_ms, bound_by = _k2_bound_ms(Q, M, clips=2)
+    lib_ms = median_ms(cdist_min, reps=2, warmup=1)
+    bound_ms, bound_by = k2_bound_ms(Q, M, clips=2)
     print(f"[K2] clip axis [2, {Q}] x [2, {M}]: kernel {ms:.4f} ms per "
           f"launch (2 x the single-cloud launch: {2 * single_ms:.4f} ms), "
           f"plain {plain_ms:.4f} ms, cdist+min {lib_ms:.4f} ms, bound "
@@ -1207,10 +1165,10 @@ def _shard_kernels(C, K, prob, dev, L):
     q = q.contiguous()
     k1_err = _check_k1(C, q, fc.cand, fc.valid, f"frames shard [{L}, N, P]")
     T, N, P = q.shape[0], q.shape[1], fc.cand.shape[1]
-    ms = _median_ms(lambda: C.cand_nn_cuda(q, fc.cand, fc.valid))
-    plain_ms = _median_ms(lambda: C.cand_nn_plain(q, fc.cand, fc.valid))
-    lib_ms = _median_ms(lambda: torch.cdist(q, fc.cand).min(-1))
-    bound_ms, bound_by = _k1_bound_ms(T, N, P)
+    ms = median_ms(lambda: C.cand_nn_cuda(q, fc.cand, fc.valid))
+    plain_ms = median_ms(lambda: C.cand_nn_plain(q, fc.cand, fc.valid))
+    lib_ms = median_ms(lambda: torch.cdist(q, fc.cand).min(-1))
+    bound_ms, bound_by = k1_bound_ms(T, N, P)
     print(f"[K1] frames shard [{T}, {N}, {P}]: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, cdist+min {lib_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of the "
@@ -1219,17 +1177,17 @@ def _shard_kernels(C, K, prob, dev, L):
     scene = solver.scene
     k2_err = _check_k2(K, q, scene, f"frames shard [{L}, N] x scene")
     Q, M = q.numel() // 3, scene.shape[0]
-    ms = _median_ms(lambda: K.nn_distance_cuda(q, scene), reps=10)
-    plain_ms = _median_ms(lambda: K.nn_distance_plain(q, scene), reps=3,
-                          warmup=1)
+    ms = median_ms(lambda: K.nn_distance_cuda(q, scene), reps=10)
+    plain_ms = median_ms(lambda: K.nn_distance_plain(q, scene), reps=3,
+                         warmup=1)
     qf = q.reshape(-1, 3)
 
     def cdist_min():
         for s in range(0, Q, 8192):
             torch.cdist(qf[s:s + 8192], scene).min(-1)
 
-    lib_ms = _median_ms(cdist_min, reps=3, warmup=1)
-    bound_ms, bound_by = _k2_bound_ms(Q, M)
+    lib_ms = median_ms(cdist_min, reps=3, warmup=1)
+    bound_ms, bound_by = k2_bound_ms(Q, M)
     print(f"[K2] frames shard Q={Q} M={M}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, cdist+min {lib_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of the "
@@ -1828,7 +1786,7 @@ def _fk_phase(prob, dev, state, C, K, n_a):
           f"(limit 2e-5)", flush=True)
     if max(errs) > 2e-5:
         raise AssertionError(f"FK adjoint gradients off by {max(errs)}")
-    ms = {name: _median_ms(lambda f=f: fwd_bwd(f))
+    ms = {name: median_ms(lambda f=f: fwd_bwd(f))
           for name, f in (("adjoint", fk.rigid_transform),
                           ("autograd", fk.rigid_transform_ref))}
 
@@ -1850,7 +1808,7 @@ def _fk_phase(prob, dev, state, C, K, n_a):
                         ("autograd", fk.rigid_transform_ref)):
             fk.rigid_transform_prod = f
             grads[name] = block()
-            ms[f"block_{name}"] = _median_ms(block)
+            ms[f"block_{name}"] = median_ms(block)
     finally:
         fk.rigid_transform_prod = saved
     berr = _grad_err(grads["adjoint"], grads["autograd"])
@@ -1944,8 +1902,8 @@ def _library_phase(prob, dev, K, q, k2_ms, local_hist):
     pick_err = (exact_c - d_k[diff]).abs()
     ok = bool((dist_err <= bound).all()) and bool(
         (pick_err <= 2 * bound[diff]).all())
-    ms = _median_ms(lambda: chamfer_ref.nn_distance_chunked(q, scene),
-                    reps=3, warmup=1)
+    ms = median_ms(lambda: chamfer_ref.nn_distance_chunked(q, scene),
+                   reps=3, warmup=1)
     print(f"[chamfer_ref] nn_distance_chunked Q={q.numel() // 3} M="
           f"{scene.shape[0]} (8192 x 8192 chunks): {ms:.4f} ms, K2 "
           f"{k2_ms:.4f} ms (phase 4); max |d - d_K2| "
@@ -2077,7 +2035,78 @@ def _accuracy_phase(C, K):
     return r, got[0]
 
 
+# the compact line's keys (fpv4d_torch/bench.py Bench.result)
+_BENCH_KEYS = (
+    "device", "power_limit", "modes_steady_s", "solve_mfu",
+    "launches_per_solve", "phase_ms_per_step", "k1_ms", "k2_ms",
+    "keypoint_fit_fps", "keypoint_fleet_fps", "keypoint_optimizer_fps",
+    "fleet_clips_per_hour_per_chip", "fleet_per_clip_vs_single",
+    "fleet_modes_clips_per_hour", "fleet_max_clips_per_chip",
+    "fleet_implied_gb_per_clip", "fleet_gib_per_clip", "accuracy",
+    "pallas_ok", "cand_kernel_ok", "full_results")
+
+
+def _bench_phase(extra_args=(), T: int = 300):
+    """Phase 31: the bench entry point in a subprocess at full width and
+    a cut depth. Returns (seconds, the result line as a dict)."""
+    from fpv4d_torch.config import ClipConfig
+    cfg = ClipConfig()
+    n_a = int(cfg.num_iter * cfg.stage_split)
+    records = {n: (ROOT / n).read_bytes() if (ROOT / n).exists() else None
+               for n in ("bench_out.json", "bench_out_cpu.json")}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "bench_torch_out.json"
+        env = dict(os.environ, FPV4D_BENCH_FRAMES=str(T),
+                   FPV4D_BENCH_MODES="local,global", FPV4D_BENCH_MULTI="2",
+                   FPV4D_BENCH_MULTI_MODES="0", FPV4D_BENCH_OUT=str(out))
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "fpv4d_torch.bench", *extra_args],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=400)
+        secs = time.perf_counter() - t0
+        for line in r.stderr.splitlines():
+            if line.startswith("[bench]"):
+                print(line[:300])
+        if r.returncode != 0:
+            raise AssertionError(f"bench exited {r.returncode}: "
+                                 f"{r.stderr[-3000:]}")
+        line = r.stdout.strip().splitlines()[-1]
+        res = json.loads(line)
+        full = json.loads(out.read_text())["extras"]
+    ex = res["extras"]
+    print(f"[bench] phase 31 in {secs:.1f} s, by block (s): "
+          f"{ {k: round(v, 1) for k, v in full['block_s'].items()} }; "
+          f"result line ({len(line)} characters): {line}", flush=True)
+    shares = [v for v in ex["solve_mfu"].values()]
+    for p in full["phases"].values():
+        shares += [p["mfu"], p["bytes_frac"], p["busy_frac"]]
+        shares += [p["lazy"][k] for k in ("mfu", "bytes_frac")
+                   if "lazy" in p]
+    checks = {
+        "metric": res["metric"] == f"clip_joint_opt_{T}f_local_mode_wallclock",
+        "correct": res["correct"] is True and res["unit"] == "s",
+        "vs_baseline":
+            abs(res["vs_baseline"] * res["value"] / 60 - 1) < 1e-2,
+        "line under 2,000 characters": len(line) < 2000,
+        "compact keys": set(_BENCH_KEYS) <= set(ex),
+        "device": ex["device"] == torch.cuda.get_device_name(0),
+        "kernel checks exact": (ex["pallas_ok"] is True
+                                and ex["cand_kernel_ok"] is True),
+        "launches per solve": ex["launches_per_solve"] == {
+            "local": [n_a, 0], "global": [n_a, 0]},
+        "shares in [0, 1]": all(v is not None and 0 <= v <= 1
+                                for v in shares),
+        "records untouched": all(
+            ((ROOT / n).read_bytes() if (ROOT / n).exists() else None) == b
+            for n, b in records.items())}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bench: failed {failed}")
+    return secs, res
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not (ROOT / "fpv4d_torch" / "__init__.py").is_file():
         print(f"chip_smoke: the fpv4d_torch package is missing beside "
               f"{Path(__file__).name} (run it from the repository's root)")
@@ -2160,10 +2189,10 @@ def main() -> int:
     T, N, _ = q.shape
     timings = {}
     for P, fc in ((192, fc192), (512, fc512)):
-        ms = _median_ms(lambda: C.cand_nn_cuda(q, fc.cand, fc.valid))
-        plain_ms = _median_ms(lambda: C.cand_nn_plain(q, fc.cand, fc.valid))
-        lib_ms = _median_ms(lambda: torch.cdist(q, fc.cand).min(-1))
-        bound_ms, bound_by = _k1_bound_ms(T, N, P)
+        ms = median_ms(lambda: C.cand_nn_cuda(q, fc.cand, fc.valid))
+        plain_ms = median_ms(lambda: C.cand_nn_plain(q, fc.cand, fc.valid))
+        lib_ms = median_ms(lambda: torch.cdist(q, fc.cand).min(-1))
+        bound_ms, bound_by = k1_bound_ms(T, N, P)
         timings[P] = (ms, plain_ms, lib_ms, bound_ms, bound_by)
         print(f"[K1] P={P}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"cdist+min {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -2203,17 +2232,17 @@ def main() -> int:
               "coordinates near +-1,000")
 
     Q, M = q.numel() // 3, scene.shape[0]
-    k2_ms = _median_ms(lambda: K.nn_distance_cuda(q, scene), reps=10)
-    k2_plain_ms = _median_ms(lambda: K.nn_distance_plain(q, scene), reps=3,
-                             warmup=1)
+    k2_ms = median_ms(lambda: K.nn_distance_cuda(q, scene), reps=10)
+    k2_plain_ms = median_ms(lambda: K.nn_distance_plain(q, scene), reps=3,
+                            warmup=1)
     qf = q.reshape(-1, 3)
 
     def cdist_min():
         for s in range(0, Q, 8192):
             torch.cdist(qf[s:s + 8192], scene).min(-1)
 
-    k2_lib_ms = _median_ms(cdist_min, reps=3, warmup=1)
-    k2_bound, k2_bound_by = _k2_bound_ms(Q, M)
+    k2_lib_ms = median_ms(cdist_min, reps=3, warmup=1)
+    k2_bound, k2_bound_by = k2_bound_ms(Q, M)
     print(f"[K2] Q={Q} M={M}: kernel {k2_ms:.4f} ms, plain "
           f"{k2_plain_ms:.4f} ms, cdist+min (8192-query chunks) "
           f"{k2_lib_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_bound_by}), "
@@ -2310,6 +2339,12 @@ def main() -> int:
         _observability_phase(prob, dev, C, Path(tmp))
     _accuracy_phase(C, K)
     print(f"[library] phases 26-30 in {time.perf_counter() - t_lib:.2f} s",
+          flush=True)
+
+    # 31. the bench entry point in a subprocess
+    torch.cuda.empty_cache()
+    _bench_phase()
+    print(f"[done] phases 1-31 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     k1_src = ("fpv4d_torch/csrc/cand_nn.cu", "fpv4d/ops/cand_pallas.py:160")

@@ -524,21 +524,30 @@ class ClipSolver:
             lambda st: self.phase_loss(phase, st, target_6d, frame_weights,
                                        cands, sdf_lin))
 
+    @torch.no_grad()
+    def hoisted_joints(self, state: ClipState) -> torch.Tensor:
+        """dct_a's world joints, computed once per phase: the body is
+        frozen there."""
+        return forward_world(self.ctx, state,
+                             vertex_subset=self.contact_vids,
+                             prune=self._contact_prune)[1]
+
+    def dct_a_loss(self, joints_w: torch.Tensor, state: ClipState
+                   ) -> torch.Tensor:
+        """dct_a's step: the DCT residual of c_dct on hoisted joints."""
+        return losses.dct_trajectory(joints_w, state.c_dct,
+                                     self.config.window) * self.config.dct_mult
+
     def _run_dct_only_phase(self, state, opt, num_steps: int
                             ) -> torch.Tensor:
         """dct_a optimizes c_dct alone: the body is frozen, so the world
         joints are computed once, without grad, and each step is the DCT
         residual and its c_dct gradient (the other three leaves keep zero
         gradients and move on their Adam moments)."""
-        cfg = self.config
-        with torch.no_grad():
-            _, joints_w, _ = forward_world(
-                self.ctx, state, vertex_subset=self.contact_vids,
-                prune=self._contact_prune)
+        joints_w = self.hoisted_joints(state)
         return self._run_steps(
             state, opt, self.phase_mask("dct_a"), num_steps,
-            lambda st: losses.dct_trajectory(joints_w, st.c_dct,
-                                             cfg.window) * cfg.dct_mult)
+            lambda st: self.dct_a_loss(joints_w, st))
 
     def _run_phase_auto(self, state, opt, target_6d, frame_weights,
                         num_steps: int, phase: str) -> torch.Tensor:
@@ -566,16 +575,20 @@ class ClipSolver:
             left -= k
         return torch.cat(hists)
 
+    def skate_loss(self, state: ClipState, target_6d, frame_weights,
+                   weight_right) -> torch.Tensor:
+        """The anti-skate phase's loss, cal_loss2's terms summed."""
+        rec, local_s, vert_s, skate = self.terms2(
+            state, target_6d, frame_weights, weight_right)
+        return vert_s + local_s + rec + skate
+
     def _run_skate_phase(self, state, opt, target_6d, frame_weights,
                          num_steps: int, weight_right) -> torch.Tensor:
         """Anti-foot-skate refinement over the body sequence only."""
-        def loss_fn(st):
-            rec, local_s, vert_s, skate = self.terms2(
-                st, target_6d, frame_weights, weight_right)
-            return vert_s + local_s + rec + skate
-
-        return self._run_steps(state, opt, self.phase_mask("skate"),
-                               num_steps, loss_fn)
+        return self._run_steps(
+            state, opt, self.phase_mask("skate"), num_steps,
+            lambda st: self.skate_loss(st, target_6d, frame_weights,
+                                       weight_right))
 
     # -- public API ------------------------------------------------------------
 

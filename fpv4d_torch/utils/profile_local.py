@@ -63,8 +63,10 @@ def measure(fn, steps: int, dev: torch.device, top: int = 6) -> dict:
            "k1_ms": None, "launches": None, "top": None}
     if dev.type != "cuda":
         return rec
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    # the device's activity alone: every number here is a kernel's or a
+    # copy's, and the host's op events would multiply what the profiler
+    # records and key_averages() sorts
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn(steps)
         _sync(dev)

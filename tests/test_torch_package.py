@@ -44,7 +44,8 @@ _EXPECTED = (
     "fpv4d_torch.io.video", "fpv4d_torch.cli.vis", "fpv4d_torch.cli.prep",
     "fpv4d_torch.models.cvae", "fpv4d_torch.ops.chamfer_ref",
     "fpv4d_torch.utils.monitor", "fpv4d_torch.utils.observability",
-    "fpv4d_torch.utils.accuracy_report", "fpv4d_torch.io.native")
+    "fpv4d_torch.utils.accuracy_report", "fpv4d_torch.io.native",
+    "fpv4d_torch.bench", "fpv4d_torch.utils.cost")
 
 _HOST_LIBS = ("cv2", "PIL", "joblib")
 
@@ -78,3 +79,17 @@ def test_no_port_module_loads_cv2_pil_or_joblib():
         cwd=root, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+# the JAX package's benchmark records, taken on a TPU
+_TPU_RECORDS = ("bench_out.json", "bench_out_cpu.json", "BENCH_r0",
+                "kp_bench_out.json", "hbm_probe_out.json", "MULTICHIP_r0")
+
+
+def test_bench_reads_no_tpu_record():
+    """The port's bench and its cost count name none of the TPU's
+    record files, so they can read none of them."""
+    pkg = Path(__file__).resolve().parents[1] / "fpv4d_torch"
+    for rel in ("bench.py", "utils/cost.py"):
+        src = (pkg / rel).read_text()
+        assert not [r for r in _TPU_RECORDS if r in src], rel
