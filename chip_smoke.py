@@ -176,9 +176,22 @@ Phases, each fatal on failure:
                 compact key, both kernel checks exact, K1 once per
                 contact step of each solve and K2 never (the grid), every
                 share of a phase and of a solve set and in [0, 1]; the JAX
-                package's bench records untouched.
-Every count is set to 0 just before its path runs and read just after
-(phase 31's by the bench itself, around each solve).
+                package's bench records untouched;
+ 32. compiled   the compiled phase (solve/step_graph.py): the standard
+                local fit four times in turns, eager (step_graphs=False),
+                graph, graph, eager; then global/brute and dct/grid once
+                on each route. Per run: wall ms per step of each phase,
+                the fit's seconds, the capture seconds, the peak memory,
+                K1 400 / 400 / 500 and K2 0 / 400 / 0 launches (a graph's
+                counted as replays x the launches of one captured step);
+                each graph run's histories held to the eager run's by
+                _hold_histories ("graph vs eager"), whether they are
+                bit-equal, and each final leaf's largest difference.
+Every solve and fleet fit (phases 5-7, 13-19, 26, 30, 31) takes the
+default route, graphs on the card; the frames axis (21-22) runs eagerly
+(its collectives are inside the step). Every count is set to 0 just
+before its path runs and read just after (phase 31's by the bench
+itself, around each solve).
 The second-to-last lines are a JSON object of kernel results and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when no CUDA device is available or when
@@ -2105,6 +2118,86 @@ def _bench_phase(extra_args=(), T: int = 300):
     return secs, res
 
 
+def _compiled_phase(prob, dev, C, K, n_a, n_dct_b):
+    """Phase 32: the compiled phase. The standard local fit four times in
+    turns, eager (step_graphs=False), graph, graph, eager; then
+    global/brute and dct/grid once on each route (graph first). Each run
+    with both counts at 0 and the peak memory reset: per phase the wall
+    ms per step, the fit's seconds, the capture seconds, the peak memory
+    and the launches; each graph run's histories held to the eager
+    run's by _hold_histories, and the largest difference of each final
+    leaf printed. Returns the per-run records."""
+    from fpv4d_torch.utils.bench_problem import standard_problem
+
+    def run(pr, mode, graphs, expect, label):
+        solver = pr.solver
+        solver.step_graphs = graphs
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(C, K)
+        t0 = time.perf_counter()
+        final, hist = solver.fit(pr.body, pr.cam, mode=mode)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = (C.launches, K.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = {k: round(solver.phase_seconds[k] / len(v) * 1e3, 3)
+              for k, v in hist.items()}
+        cap = {k: round(v, 3) for k, v in solver.capture_seconds.items()}
+        route = "graph" if graphs else "eager"
+        print(f"[compiled] {label} {route}: fit {secs:.3f} s (init "
+              f"{solver.phase_seconds['init']:.3f} s); ms per step {ms}; "
+              f"capture s {cap}; peak {peak:.3f} GiB; K1 launches "
+              f"{got[0]}, K2 launches {got[1]} (expected {expect[0]}, "
+              f"{expect[1]})", flush=True)
+        if got != expect:
+            raise AssertionError(f"compiled {label} {route}: launches "
+                                 f"{got}, expected {expect}")
+        if graphs != bool(cap):
+            raise AssertionError(f"compiled {label} {route}: captures {cap}")
+        for k, v in hist.items():
+            if not (np.all(np.isfinite(v)) and v[-1] < v[0]):
+                raise AssertionError(f"compiled {label} {route} {k}: "
+                                     "losses not finite and falling")
+        return {"route": route, "fit_s": secs, "ms_per_step": ms,
+                "capture_s": cap, "peak_gib": peak, "hist": hist,
+                "final": final}
+
+    def hold(g, e, label):
+        _hold_histories(g["hist"], e["hist"], label, what="graph vs eager")
+        exact = all(np.array_equal(g["hist"][k], e["hist"][k])
+                    for k in e["hist"])
+        diffs = {f: float((a - b).abs().max()) for f, a, b in zip(
+            g["final"]._fields, g["final"], e["final"])}
+        print(f"[compiled] {label}: histories bit-equal {exact}; final "
+              f"leaves' max abs difference graph vs eager {diffs}",
+              flush=True)
+        if not all(np.isfinite(d) for d in diffs.values()):
+            raise AssertionError(f"compiled {label}: non-finite leaves")
+
+    t0 = time.perf_counter()
+    local = [run(prob, "local", g, (n_a, 0), "local")
+             for g in (False, True, True, False)]
+    hold(local[1], local[0], "local run 2 vs 1")
+    hold(local[2], local[3], "local run 3 vs 4")
+    prob_b = standard_problem(device=dev, nn_impl="brute")
+    brute = [run(prob_b, "global", g, (0, n_a), "global/brute")
+             for g in (True, False)]
+    hold(brute[0], brute[1], "global/brute")
+    del prob_b
+    dct = [run(prob, "dct", g, (n_dct_b, 0), "dct/grid")
+           for g in (True, False)]
+    hold(dct[0], dct[1], "dct/grid")
+    prob.solver.step_graphs = True
+    out = {"local": local, "global/brute": brute, "dct/grid": dct}
+    for label, runs in out.items():
+        print(f"[compiled] {label}: fit seconds by run " + ", ".join(
+            f"{r['route']} {r['fit_s']:.3f}" for r in runs), flush=True)
+    print(f"[compiled] phase 32 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "fpv4d_torch" / "__init__.py").is_file():
@@ -2344,7 +2437,11 @@ def main() -> int:
     # 31. the bench entry point in a subprocess
     torch.cuda.empty_cache()
     _bench_phase()
-    print(f"[done] phases 1-31 in {time.perf_counter() - t_start:.1f} s",
+
+    # 32. the compiled phase: graph against eager
+    torch.cuda.empty_cache()
+    _compiled_phase(prob, dev, C, K, n_a, n_dct_b)
+    print(f"[done] phases 1-32 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     k1_src = ("fpv4d_torch/csrc/cand_nn.cu", "fpv4d/ops/cand_pallas.py:160")

@@ -176,11 +176,13 @@ def snapshot(state: ClipState, opt):
 
 
 def restore(state: ClipState, opt, snap):
+    """The leaves and the Adam state copied back in place (a captured
+    step goes on reading them)."""
     leaves, sd = snap
     with torch.no_grad():
         for x, s in zip(state, leaves):
             x.copy_(s)
-    opt.load_state_dict(copy.deepcopy(sd))
+    opt.load_state_dict(sd)
 
 
 def shares(flops: float, nbytes: float, sec_per_step: float,
@@ -227,53 +229,65 @@ def bench_mode(solver: ClipSolver, body, cam, mode: str,
     """bench.py's bench_mode: each phase of `mode` from one state chain,
     timed on the exact contact route (and on the lazy tables where the
     phase reads them), costed and, on the card, profiled; the stats go
-    to phases_out by phase ('skate' for the anti-skate phase). Returns
-    the exact route's seconds, detection included."""
+    to phases_out by phase ('skate' for the anti-skate phase). Every
+    run goes through one phase program on the solver's route (graphs on
+    the card), so a phase's timed runs after its first include no
+    capture. Returns the exact route's seconds, detection included."""
     cfg, dev = solver.config, solver.device
     st, target, weights = solver.init_state(body, cam)
     state, opt = solver.make_optimizer(st)
+    program = solver.program()
     total = 0.0
-    for phase, steps in schedule(cfg, mode):
-        total += phase_stats(solver, state, opt, target, weights, steps,
-                             phase, phases_out)
-    if mode == "local":
-        dt, wr, _ = counted(lambda: solver.detect_contact(state), dev)
-        total += dt
-        steps = int(cfg.contact_phase_frac * cfg.num_iter)
-        total += phase_stats(solver, state, opt, target, weights, steps,
-                             "skate", phases_out, weight_right=wr)
+    try:
+        for phase, steps in schedule(cfg, mode):
+            total += phase_stats(solver, state, opt, target, weights, steps,
+                                 phase, phases_out, program)
+        if mode == "local":
+            dt, wr, _ = counted(lambda: solver.detect_contact(state), dev)
+            total += dt
+            steps = int(cfg.contact_phase_frac * cfg.num_iter)
+            total += phase_stats(solver, state, opt, target, weights,
+                                 steps, "skate", phases_out, program,
+                                 weight_right=wr)
+    finally:
+        program.close()
     return total
 
 
 def profile_production_step(solver: ClipSolver, state, opt, target,
-                            weights, phase: str, run, lazy: bool) -> dict:
+                            weights, phase: str, run, lazy: bool,
+                            program) -> dict:
     """A production step's busy share, launches and top kernel, from
     profiles of PROFILE_STEPS steps (on fixed tables where the phase
-    reads lazy ones) and, for a lazy phase, of one table refresh,
-    amortized over the refresh interval as production runs it."""
+    reads lazy ones; graph replays on the graph route) and, for a lazy
+    phase, of one table refresh, amortized over the refresh interval as
+    production runs it. Launches are the kernels the profiler saw run
+    per step (None where it saw none of a replay's)."""
     from fpv4d_torch.utils.profile_local import measure
     dev = solver.device
     t0 = time.perf_counter()
     if lazy:
         cands = solver._refresh_cands(state)
         rec = measure(lambda n: solver._run_phase(
-            state, opt, target, weights, n, phase, cands), PROFILE_STEPS,
-            dev, top=1)
+            state, opt, target, weights, n, phase, cands, program=program),
+            PROFILE_STEPS, dev, top=1)
         ref = measure(lambda n: [solver._refresh_cands(state)
                                  for _ in range(n)], 1, dev, top=1)
         every = solver.config.contact_refresh_steps
         for k in ("wall_ms", "device_ms", "launches"):
-            rec[k] += ref[k] / every
+            if rec[k] is not None:
+                rec[k] += ref[k] / every
     else:
         rec = measure(run, PROFILE_STEPS, dev, top=1)
-    return {"busy_frac": rec["device_ms"] / rec["wall_ms"],
+    return {"busy_frac": (None if rec["device_ms"] is None
+                          else rec["device_ms"] / rec["wall_ms"]),
             "launches_per_step": rec["launches"],
             "top_kernel": rec["top"][0] if rec["top"] else None,
             "profile_s": time.perf_counter() - t0}
 
 
 def phase_stats(solver: ClipSolver, state, opt, target, weights,
-                steps: int, phase: str, phases_out: dict,
+                steps: int, phase: str, phases_out: dict, program,
                 weight_right=None) -> float:
     """One phase from `state` (bench.py's _phase_stats): the exact route
     timed; where the phase reads lazy tables, the same phase again from
@@ -287,10 +301,11 @@ def phase_stats(solver: ClipSolver, state, opt, target, weights,
     if phase == "skate":
         def run(n):
             return solver._run_skate_phase(state, opt, target, weights, n,
-                                           weight_right)
+                                           weight_right, program)
     else:
         def run(n):
-            return solver._run_phase(state, opt, target, weights, n, phase)
+            return solver._run_phase(state, opt, target, weights, n, phase,
+                                     program=program)
     snap = snapshot(state, opt)
     dt, hist, got = counted(lambda: run(steps).cpu().numpy(), dev)
     flops, nbytes = cost.step_cost(solver, phase, state, target, weights,
@@ -302,7 +317,8 @@ def phase_stats(solver: ClipSolver, state, opt, target, weights,
     if lazy:
         restore(state, opt, snap)
         dt_l, hist_l, got = counted(lambda: solver._run_phase_auto(
-            state, opt, target, weights, steps, phase).cpu().numpy(), dev)
+            state, opt, target, weights, steps, phase,
+            program).cpu().numpy(), dev)
         stats["ms_per_step_lazy"] = dt_l / steps * 1e3
         stats["final_loss_lazy"] = float(hist_l[-1])
         fl, nb = cost.step_cost(solver, phase, state, target, weights,
@@ -313,7 +329,8 @@ def phase_stats(solver: ClipSolver, state, opt, target, weights,
     if on_card:
         snap = snapshot(state, opt)
         stats.update(profile_production_step(solver, state, opt, target,
-                                             weights, phase, run, lazy))
+                                             weights, phase, run, lazy,
+                                             program))
         restore(state, opt, snap)
     phases_out[phase] = stats
     return dt
@@ -380,8 +397,9 @@ class Bench:
 
     def headline(self):
         """The local fit through the public API: first (the kernels'
-        build, then a fit whose 'init' holds the process's first
-        torch.optim import) and the median of STEADY_RUNS steady fits."""
+        build, then a fit that captures each phase's graph for the first
+        time in the process) and the median of STEADY_RUNS steady
+        fits."""
         ex = self.extras
         build_s = None
         if self.on_card:
@@ -409,11 +427,13 @@ class Bench:
         steps = sum(len(v) for v in hist.values())
         # the last steady fit's own seconds per stage, beside which the
         # per-phase windows of `modes` can be read
+        ex["step_graphs"] = self.solver.step_graphs
         ex["modes"]["local"] = {
             "steady_s": self.dt, "steady_runs_s": runs,
             "frame_iters_per_s": self.k.T * steps / self.dt,
             "launches": list(got),
-            "fit_phase_s": dict(self.solver.phase_seconds)}
+            "fit_phase_s": dict(self.solver.phase_seconds),
+            "capture_s": dict(self.solver.capture_seconds)}
         _log(f"steady local solve: {self.dt:.2f}s median of {runs} "
              f"({steps} steps, {self.k.T * steps / self.dt:.0f} "
              f"frame-iters/s)")
@@ -431,7 +451,8 @@ class Bench:
                 ex["modes"][mode] = {
                     "steady_s": dt_m, "steady_exact_s": t_mode,
                     "launches": list(got),
-                    "fit_phase_s": dict(self.solver.phase_seconds)}
+                    "fit_phase_s": dict(self.solver.phase_seconds),
+                    "capture_s": dict(self.solver.capture_seconds)}
             entry = ex["modes"][mode]
             flops = sum(n * self.prod_flops(p)
                         for p, n in mode_phases(self.solver.config, mode))
@@ -746,6 +767,9 @@ class Bench:
                 "solve_mfu": {m: _sig(v["mfu"])
                               for m, v in ex["modes"].items()},
                 "launches_per_solve": self.launches,
+                "step_graphs": ex["step_graphs"],
+                "capture_s": {m: _sig(sum(v["capture_s"].values()))
+                              for m, v in ex["modes"].items()},
                 "phase_ms_per_step": {k: phase_ms(v)
                                       for k, v in ex["phases"].items()},
                 "k1_ms": _sig(ex["cand_kernel_check"]["cases"]["standard"]

@@ -53,6 +53,8 @@
 // order moved it; PERF.md has the kernel's times.
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 #include "gram_nn.cuh"
 
 namespace {
@@ -64,6 +66,7 @@ constexpr int kTile = 1024;  // points per shared tile
 constexpr int kSeedChunks = kTile / gram::kChunk;  // seed: one tile
 constexpr int kFrags = kSeedChunks * gram::kChunkFrags;
 constexpr int kSmem = kFrags * 16 + 2 * 3 * kTile * 4;  // 56 KB
+constexpr int kMaxDevices = 64;  // devices whose attribute is tracked
 
 __device__ __forceinline__ void copy_word(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -228,14 +231,26 @@ chamfer_nn_kernel(const float* __restrict__ x, const float* __restrict__ y,
 // into its own cloud); rechecks is null or [C,Q] int32, which then
 // receives each query's number of exact re-evaluations. Q >= 1, M >= 1,
 // 1 <= C <= 65,535 and 3*Q, 3*M < 2^31 (the wrapper checks). Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// `stream` and returns cudaGetLastError() (0 on success). The kernel's
+// shared-memory attribute is set on the first launch on each device only,
+// so a launch inside a CUDA graph capture makes no other runtime call.
 extern "C" int chamfer_nn_forward(const void* x, const void* y, void* dist,
                                   void* idx, void* rechecks, int Q, int M,
                                   int C, void* stream) {
-  const dim3 grid((Q + kQueries - 1) / kQueries, C);
-  const cudaError_t e = cudaFuncSetAttribute(
-      chamfer_nn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  static std::atomic<bool> prepared[kMaxDevices];
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (device < 0 || device >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!prepared[device].load()) {
+    e = cudaFuncSetAttribute(chamfer_nn_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    prepared[device].store(true);
+  }
+  const dim3 grid((Q + kQueries - 1) / kQueries, C);
   chamfer_nn_kernel<<<grid, kThreads, kSmem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(y),

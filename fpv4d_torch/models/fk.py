@@ -91,7 +91,7 @@ def _local_transforms(rot_mats: torch.Tensor, rel_joints: torch.Tensor
     top = torch.cat([rot_mats, rel_joints[..., None]], dim=-1)
     bottom = torch.zeros(B, J, 1, 4, dtype=rel_joints.dtype,
                          device=rel_joints.device)
-    bottom[..., 3] = 1.0
+    bottom[..., 3].fill_(1.0)       # no host scalar tensor: capturable
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -1,6 +1,8 @@
 """Loss terms of the capture pipeline (port of fpv4d/ops/losses.py)."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from fpv4d_torch.core.dct import dct_basis
@@ -57,6 +59,13 @@ def gm(e: torch.Tensor) -> torch.Tensor:
     return e / (e + 1.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _step_basis(window: int, k: int, device: torch.device) -> torch.Tensor:
+    """dct_basis made once per shape and device: a step reads it without
+    a host-to-device copy (a captured step cannot make one)."""
+    return dct_basis(window, k, device)
+
+
 def dct_trajectory(joints_world: torch.Tensor, c_dct: torch.Tensor,
                    window: int = 60) -> torch.Tensor:
     """Low-frequency DCT trajectory prior: joints_world [T, J, 3] with
@@ -67,7 +76,7 @@ def dct_trajectory(joints_world: torch.Tensor, c_dct: torch.Tensor,
     if W * window != T or Jc > J:
         raise ValueError(f"c_dct {tuple(c_dct.shape)} does not tile "
                          f"joints {tuple(joints_world.shape)}")
-    basis = dct_basis(window, K, joints_world.device)
+    basis = _step_basis(window, K, joints_world.device)
     traj = joints_world[:, :Jc, :].reshape(W, window, Jc, 3)
     rec = torch.einsum("tk,wjak->wtja", basis, c_dct)
     e = (traj - rec) ** 2

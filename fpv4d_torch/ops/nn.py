@@ -189,12 +189,13 @@ def _cell_ids(grid: VoxelGrid, q: torch.Tensor,
               origin: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [..., 3] -> flat (clamped) cell id [...] int64; `origin`
     (broadcast against q) replaces the grid's own."""
-    dims = torch.as_tensor(grid.dims, device=q.device)
     origin = grid.origin if origin is None else origin
     cell = torch.floor((q - origin) / grid.h).to(torch.int64)
-    cell = torch.minimum(torch.clamp(cell, min=0), dims - 1)
-    return ((cell[..., 0] * grid.dims[1] + cell[..., 1]) * grid.dims[2]
-            + cell[..., 2])
+    # clamped axis by axis against the host's dims: no host-to-device
+    # copy in a step (a captured step cannot make one)
+    cx, cy, cz = (torch.clamp(cell[..., a], 0, grid.dims[a] - 1)
+                  for a in range(3))
+    return (cx * grid.dims[1] + cy) * grid.dims[2] + cz
 
 
 def _fold(grid_b: VoxelGrid, q: torch.Tensor, C: int):

@@ -13,6 +13,12 @@ contiguous share of each of those clips' frames (parallel/sharding.py
 FrameShard: a halo of 2 frames, per-clip partial losses, whole leaves'
 gradients summed): init runs on the whole clip, then each rank keeps
 its frames, and the results are gathered over both axes.
+
+A rank whose frames group has one rank runs each phase through the
+solver's phase program (solve/step_graph.py: on the card, a CUDA graph
+of the step captured once and replayed); a frames group of more ranks
+runs eagerly, its gradient sums and halo being collectives inside the
+step.
 """
 from __future__ import annotations
 
@@ -27,8 +33,11 @@ import torch
 from fpv4d_torch.core import rotations
 from fpv4d_torch.ops import nn as NN
 from fpv4d_torch.parallel import sharding as SH
+from fpv4d_torch.solve import step_graph
+from fpv4d_torch.solve.adam import Adam
 from fpv4d_torch.solve.clip_solve import (DEFAULT_REFRESH_STEPS, ClipSolver,
-                                          ClipState, _as_f32)
+                                          ClipState, _as_f32,
+                                          capture_seconds)
 
 _FAR = 1e6
 
@@ -41,36 +50,6 @@ def pad_scenes(scenes: Sequence[np.ndarray]) -> np.ndarray:
     for i, s in enumerate(scenes):
         out[i, :s.shape[0]] = s
     return out
-
-
-def _slice_optimizer(state_b: ClipState, opt: torch.optim.Adam,
-                     sl: slice) -> Tuple[ClipState, torch.optim.Adam]:
-    """Leaves and an Adam holding clips `sl` of state_b and of opt's
-    moments, and opt's shared step count: a phase run on them advances
-    those clips exactly as the whole fleet's Adam would."""
-    sub = ClipState(*(x.detach()[sl].clone().requires_grad_(True)
-                      for x in state_b))
-    for p in sub:
-        p.grad = torch.zeros_like(p)
-    sub_opt = torch.optim.Adam(list(sub))
-    sub_opt.param_groups[0].update(
-        {k: v for k, v in opt.param_groups[0].items() if k != "params"})
-    for p, q in zip(state_b, sub):
-        sub_opt.state[q] = {k: v.clone() if k == "step" else v[sl].clone()
-                            for k, v in opt.state[p].items()}
-    return sub, sub_opt
-
-
-@torch.no_grad()
-def _write_back(state_b: ClipState, opt: torch.optim.Adam, sub: ClipState,
-                sub_opt: torch.optim.Adam, sl: slice):
-    """Clips `sl` of the leaves and moments back from a sub-batch (the
-    shared step count is the caller's to advance, once)."""
-    for p, q in zip(state_b, sub):
-        p[sl] = q
-        for k, v in sub_opt.state[q].items():
-            if k != "step":
-                opt.state[p][k][sl] = v
 
 
 @dataclass
@@ -99,6 +78,8 @@ class MultiClipSolver:
         # frames rank's whole leaves (scale, a whole c_dct) and another
         # frames rank's copy: 0.0 while the copies move identically
         self.whole_leaf_spread: Dict[str, float] = {}
+        # host seconds of each phase's graph captures in the last fit
+        self.capture_seconds: Dict[str, float] = {}
 
     def _get_grids(self, scenes) -> Optional[NN.VoxelGrid]:
         """The clips' batched voxel grid, cached by the scenes' CONTENT
@@ -149,7 +130,8 @@ class MultiClipSolver:
         names, with the fences per key under timings['_fences'].
 
         Returns the batched final state and per-phase loss histories
-        [steps, C]."""
+        [steps, C]; the seconds of each phase's graph captures land in
+        ``self.capture_seconds``."""
         if not self.mesh.member:
             raise ValueError(f"rank {self.mesh.rank} is outside the mesh "
                              f"{self.mesh.axes}")
@@ -157,8 +139,17 @@ class MultiClipSolver:
         camera_exts = np.asarray(camera_exts, np.float32)
         scenes = np.asarray(scenes, np.float32)
         lo, hi = SH.clip_range(self.mesh, bodies.shape[0], self.clip_axis)
-        state_b, hist = self._fit_fold(bodies[lo:hi], camera_exts[lo:hi],
-                                       scenes[lo:hi], mode, timings)
+        frames = (self.mesh.axes.get(self.frame_axis, 1)
+                  if self.frame_axis else 1)
+        program = (self.solver.program() if frames == 1
+                   else step_graph.eager(self.solver.device))
+        try:
+            state_b, hist = self._fit_fold(bodies[lo:hi], camera_exts[lo:hi],
+                                           scenes[lo:hi], mode, timings,
+                                           program)
+        finally:
+            self.capture_seconds = capture_seconds(program)
+            program.close()
         if self.mesh.axes.get(self.clip_axis, 1) > 1:
             state_b = ClipState(*(SH.all_gather_clips(
                 x, self.mesh, clip_axis=self.clip_axis) for x in state_b))
@@ -168,7 +159,8 @@ class MultiClipSolver:
                 for k, v in hist.items()}
         return state_b, hist
 
-    def _fit_fold(self, bodies, camera_exts, scenes, mode, timings):
+    def _fit_fold(self, bodies, camera_exts, scenes, mode, timings,
+                  program):
         solver, cfg = self.solver, self.solver.config
         dev = solver.device
 
@@ -249,43 +241,46 @@ class MultiClipSolver:
                     hs.append(fenced(phase, SH.run_phase, solver, phase,
                                      state_b, opt, target_b, weights_b,
                                      min(chunk, steps - s), cands=cands,
-                                     sdf_lin=lin, **contact))
+                                     sdf_lin=lin, program=program,
+                                     **contact))
                 h = torch.cat(hs)
             elif (phase == "skate" and self.skate_clip_chunk
                   and C > self.skate_clip_chunk
-                  and C % self.skate_clip_chunk == 0
-                  and all(opt.state[p] for p in state_b)):
-                h = fenced(phase, self._run_skate_chunked, state_b, opt,
-                           target_b, weights_b, weight_right, steps, shard)
+                  and C % self.skate_clip_chunk == 0):
+                h = fenced(phase, self._run_skate_chunked, opt, target_b,
+                           weights_b, weight_right, steps, shard, program)
             else:
                 h = fenced(phase, SH.run_phase, solver, phase, state_b, opt,
                            target_b, weights_b, steps,
-                           weight_right=weight_right, **contact)
+                           weight_right=weight_right, program=program,
+                           **contact)
             key = "local_skate" if phase == "skate" else phase
             hist[key] = h.cpu().numpy()
             self.whole_leaf_spread[key] = shard.whole_leaf_spread(state_b)
         return (shard.join_state(ClipState(*(x.detach() for x in state_b))),
                 hist)
 
-    def _run_skate_chunked(self, state_b, opt, target_b, weights_b,
-                           weight_right, steps: int,
-                           shard: SH.FrameShard) -> torch.Tensor:
+    def _run_skate_chunked(self, opt: Adam, target_b, weights_b,
+                           weight_right, steps: int, shard: SH.FrameShard,
+                           program: step_graph.PhaseProgram) -> torch.Tensor:
         """The skate phase over sequential sub-batches of
-        skate_clip_chunk clips, each on a slice of the leaves and of the
-        Adam moments from the fleet's shared step count, written back
-        after it."""
+        skate_clip_chunk clips, each on views of its clips' rows of the
+        leaves, gradients and Adam moments (opt.select: the steps write
+        the fleet's tensors in place) from the fleet's shared step count,
+        which advances once after them. Each sub-batch is a graph of its
+        own on the graph route."""
         k = self.skate_clip_chunk
         hs = []
-        for c0 in range(0, state_b.body_6d.shape[0], k):
+        for c0 in range(0, opt.params[0].shape[0], k):
             sl = slice(c0, c0 + k)
-            sub, sub_opt = _slice_optimizer(state_b, opt, sl)
-            hs.append(SH.run_phase(self.solver, "skate", sub, sub_opt,
+            sub = opt.select(sl)
+            hs.append(SH.run_phase(self.solver, "skate",
+                                   ClipState(*sub.params), sub,
                                    target_b[sl], weights_b[sl], steps,
                                    weight_right=weight_right[sl],
-                                   shard=shard))
-            _write_back(state_b, opt, sub, sub_opt, sl)
-        for p, q in zip(state_b, sub):
-            opt.state[p]["step"].copy_(sub_opt.state[q]["step"])
+                                   shard=shard, program=program,
+                                   key=(c0,)))
+        opt.count.copy_(sub.count)
         return torch.cat(hs, dim=1)
 
     def result_params(self, state_b: ClipState

@@ -61,7 +61,10 @@ import torch.distributed as dist
 from fpv4d_torch.ops import losses
 from fpv4d_torch.ops import nn as NN
 from fpv4d_torch.ops import sdf as SDF
-from fpv4d_torch.solve.clip_solve import ClipSolver, ClipState, forward_world
+from fpv4d_torch.solve import step_graph
+from fpv4d_torch.solve.adam import Adam
+from fpv4d_torch.solve.clip_solve import (ClipSolver, ClipState,
+                                          forward_world, stage_contact)
 
 # frames of the right neighbour a rank needs: the second-order
 # differences reach t + 2
@@ -598,28 +601,39 @@ def skate_losses(solver: ClipSolver, state_b: ClipState,
 
 
 def run_phase(solver: ClipSolver, phase: str, state_b: ClipState,
-              opt: torch.optim.Adam, target_b: torch.Tensor,
+              opt: Adam, target_b: torch.Tensor,
               weights_b: torch.Tensor, num_steps: int,
               scenes_b: Optional[torch.Tensor] = None,
               grid_b: Optional[NN.VoxelGrid] = None,
               cands: Optional[NN.FrameCands] = None,
               sdf_lin: Optional[SDF.SdfLin] = None,
               weight_right: Optional[torch.Tensor] = None,
-              shard: Optional[FrameShard] = None) -> torch.Tensor:
+              shard: Optional[FrameShard] = None,
+              program: Optional[step_graph.PhaseProgram] = None,
+              key: Tuple = ()) -> torch.Tensor:
     """num_steps Adam steps of one phase over the rank's clips (the
-    reference's build_sharded_step) -> per-clip losses [num_steps, C].
-    dct_a computes the world joints once (the body is frozen), as the
-    single-clip solver does; 'skate' takes the planted-foot weights. On
-    a frames shard the whole leaves' gradients are summed over the frames
-    ranks before every step, and the history, the ranks' partial losses,
-    once at the end."""
+    reference's build_sharded_step and phase_scan) -> per-clip losses
+    [num_steps, C]. dct_a computes the world joints once (the body is
+    frozen), as the single-clip solver does; 'skate' takes the
+    planted-foot weights. On a frames shard the whole leaves' gradients
+    are summed over the frames ranks before every step, and the history,
+    the ranks' partial losses, once at the end. `program` runs the steps
+    (eager without one; a frames group above one rank must pass an
+    eager one, its collectives run inside the step); its graph of the
+    phase is keyed by the phase, the contact inputs and `key`, and the
+    inputs that change between runs of a key (tables, linearization,
+    joints) are staged into the buffers it reads."""
     mask = solver.phase_mask(phase)
     sh = shard or FrameShard.whole(state_b.body_6d.shape[1])
+    program = program or step_graph.eager(solver.device)
+    key = (phase, cands is not None, sdf_lin is not None) + tuple(key)
+    cands, sdf_lin = stage_contact(program, key, cands, sdf_lin)
 
     def steps(loss_fn):
         return sh.all_reduce(solver._run_steps(
             state_b, opt, mask, num_steps, loss_fn,
-            reduce_grads=lambda: sh.reduce_grads(state_b, mask)))
+            reduce_grads=lambda: sh.reduce_grads(state_b, mask),
+            program=program, key=key))
 
     if phase == "dct_a":
         cfg = solver.config
@@ -628,7 +642,8 @@ def run_phase(solver: ClipSolver, phase: str, state_b: ClipState,
             _, joints, _ = forward_world(solver.ctx, flatten_state(state_b),
                                          vertex_subset=solver.contact_vids,
                                          prune=solver._contact_prune)
-            joints = sh.dct_joints(_unfold(joints, C))
+            joints, = program.stage(key + ("joints",), (
+                sh.dct_joints(_unfold(joints, C)),))
         return steps(lambda st: sh.dct_loss(joints, st.c_dct, cfg.window)
                      * cfg.dct_mult)
     if phase == "skate":

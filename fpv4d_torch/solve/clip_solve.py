@@ -24,8 +24,17 @@ exact per-step voxel query; with ``nn_impl='brute'``, the whole scene
 every step (kernel K2, ops/chamfer_cuda.py). With a scene SDF the
 contact phases add the collision term, linearized at each refresh.
 
+Each phase runs through a phase program (solve/step_graph.py): on the
+card its step is captured once as a CUDA graph and replayed, the
+counterpart of the reference's one jitted lax.scan per phase; on the CPU
+(and on the card with ``step_graphs=False``) the same step runs eagerly.
+The optimizer is solve/adam.py, optax.adam's arithmetic with its state
+on the device.
+
 Differences of form from the reference, none of value:
-  * phases are Python loops of eager steps, not one jitted lax.scan;
+  * the contact refresh, the planted-foot detection and the SDF
+    linearization run eagerly between a phase's chunks (the reference
+    jits each as a program of its own);
   * a phase's gradient mask detaches the leaves it does not optimize,
     and their ``.grad`` stays a zero tensor (never None, or Adam would
     skip them): masked leaves keep moving on their Adam moments exactly
@@ -51,6 +60,8 @@ from fpv4d_torch.models.smplx import SmplxModel
 from fpv4d_torch.ops import losses
 from fpv4d_torch.ops import nn as NN
 from fpv4d_torch.ops import sdf as SDF
+from fpv4d_torch.solve import step_graph
+from fpv4d_torch.solve.adam import Adam
 from fpv4d_torch.utils.checkpoint import save_solver_state
 
 NN_IMPLS = ("grid", "brute")
@@ -157,6 +168,30 @@ def forward_world(ctx: Ctx, state: ClipState, vertex_subset=None,
     return verts_w, joints_w, {"latent": latent}
 
 
+def capture_seconds(program: step_graph.PhaseProgram) -> Dict[str, float]:
+    """A program's capture seconds summed by phase (a key's first
+    element), named as fit's histories are."""
+    out: Dict[str, float] = {}
+    for key, sec in program.capture_seconds.items():
+        name = "local_skate" if key[0] == "skate" else key[0]
+        out[name] = out.get(name, 0.0) + sec
+    return out
+
+
+def stage_contact(program: step_graph.PhaseProgram, key: tuple,
+                  cands: Optional[NN.FrameCands],
+                  sdf_lin: Optional[SDF.SdfLin]):
+    """A chunk's candidate tables and SDF linearization in the buffers the
+    graph of `key` reads (PhaseProgram.stage; None stays None)."""
+    if cands is not None:
+        cands = NN.FrameCands(*program.stage(key + ("cands",),
+                                             (cands.cand, cands.valid)))
+    if sdf_lin is not None:
+        sdf_lin = SDF.SdfLin(*program.stage(
+            key + ("sdf",), (sdf_lin.s0, sdf_lin.g, sdf_lin.v0)))
+    return cands, sdf_lin
+
+
 def _as_f32(x, device) -> torch.Tensor:
     """A tensor, or a copy of an array (which may be read-only), as f32
     on `device`."""
@@ -171,17 +206,27 @@ class ClipSolver:
 
     nn_impl: 'grid' (voxel-grid contact NN, as the reference picks on
     its accelerator) or 'brute' (exact search of the whole scene, the
-    reference's 'pallas'/'xla'). The grid is built only for 'grid'."""
+    reference's 'pallas'/'xla'). The grid is built only for 'grid'.
+
+    step_graphs: None runs each phase's step as a CUDA graph on a CUDA
+    device and eagerly on the CPU; False runs it eagerly on either (the
+    card's route to compare with); True on the CPU raises."""
 
     def __init__(self, model: SmplxModel, vposer_params: Dict,
                  scene_verts, contact_vids, contact_vids_left,
                  contact_vids_right, config: ClipConfig = ClipConfig(),
                  nn_impl: str = "grid", grid_h: float = 0.25,
                  grid_slots: int = 8, grid: Optional[NN.VoxelGrid] = None,
-                 sdf: Optional[SDF.SdfGrid] = None, device="cuda"):
+                 sdf: Optional[SDF.SdfGrid] = None, device="cuda",
+                 step_graphs: Optional[bool] = None):
         if nn_impl not in NN_IMPLS:
             raise ValueError(f"nn_impl={nn_impl!r}: one of {NN_IMPLS}")
         self.device = torch.device(device)
+        on_card = self.device.type == "cuda"
+        if step_graphs and not on_card:
+            raise ValueError(f"step_graphs=True needs a CUDA device, not "
+                             f"{self.device}")
+        self.step_graphs = on_card if step_graphs is None else step_graphs
         self.config = config
         self.nn_impl = nn_impl
         self.model = model.to(self.device)
@@ -206,6 +251,8 @@ class ClipSolver:
         self.grid = grid
         self.sdf = None if sdf is None else sdf.to(self.device)
         self.phase_seconds: Dict[str, float] = {}
+        # host seconds of each phase's graph captures in the last fit
+        self.capture_seconds: Dict[str, float] = {}
 
         # anti-skate vertex set: stratified sample + both feet
         n_sub = config.skate_subset
@@ -472,21 +519,22 @@ class ClipSolver:
 
     # -- phase runner ----------------------------------------------------------
 
-    def make_optimizer(self, state: ClipState
-                       ) -> Tuple[ClipState, torch.optim.Adam]:
+    def make_optimizer(self, state: ClipState) -> Tuple[ClipState, Adam]:
         """Fresh leaf tensors + ONE Adam over all four leaves. Every
         leaf's .grad starts as a zero tensor and is zeroed in place each
         step, so leaves a phase does not reach still take Adam steps."""
         leaves = [x.detach().clone().requires_grad_(True) for x in state]
-        for p in leaves:
-            p.grad = torch.zeros_like(p)
-        return ClipState(*leaves), torch.optim.Adam(leaves,
-                                                    lr=self.config.lr)
+        return ClipState(*leaves), Adam(leaves, lr=self.config.lr)
+
+    def program(self) -> step_graph.PhaseProgram:
+        """A phase program for one fit on this solver's route."""
+        return step_graph.PhaseProgram(self.device, self.step_graphs)
 
     @staticmethod
-    def _run_steps(state: ClipState, opt: torch.optim.Adam, mask: ClipState,
-                   num_steps: int, loss_fn, reduce_grads=None
-                   ) -> torch.Tensor:
+    def _run_steps(state: ClipState, opt: Adam, mask: ClipState,
+                   num_steps: int, loss_fn, reduce_grads=None,
+                   program: Optional[step_graph.PhaseProgram] = None,
+                   key=("steps",)) -> torch.Tensor:
         """num_steps Adam steps of loss_fn(masked state) -> per-step
         losses [num_steps] (kept on the device; read once per phase). A
         fleet's loss_fn returns per-clip losses [C]: the step descends
@@ -494,35 +542,38 @@ class ClipSolver:
         given, runs between the backward and the step (a frames shard
         sums its whole leaves' gradients there); a loss that reaches no
         leaf (a frames rank's share of a term it does not count) has no
-        backward."""
-        hist = None
-        for i in range(num_steps):
-            opt.zero_grad(set_to_none=False)
+        backward. `program` runs the steps (eager without one); a graph
+        is captured once per `key`, a tuple that starts with the
+        phase's name."""
+        def step():
+            opt.zero_grad()
             loss = loss_fn(masked(state, mask))
             if loss.requires_grad:
                 (loss.sum() if loss.ndim else loss).backward()
             if reduce_grads is not None:
                 reduce_grads()
             opt.step()
-            if hist is None:
-                hist = torch.empty((num_steps,) + loss.shape,
-                                   dtype=torch.float32, device=loss.device)
-            hist[i] = loss.detach()
-        if hist is None:
-            hist = torch.empty(0, dtype=torch.float32,
-                               device=state.body_6d.device)
-        return hist
+            return loss.detach()
+
+        program = program or step_graph.eager(state.body_6d.device)
+        return program.run(key, step, num_steps)
 
     def _run_phase(self, state, opt, target_6d, frame_weights,
                    num_steps: int, phase: str,
                    cands: Optional[NN.FrameCands] = None,
-                   sdf_lin: Optional[SDF.SdfLin] = None) -> torch.Tensor:
+                   sdf_lin: Optional[SDF.SdfLin] = None,
+                   program: Optional[step_graph.PhaseProgram] = None
+                   ) -> torch.Tensor:
         if phase == "dct_a":
-            return self._run_dct_only_phase(state, opt, num_steps)
+            return self._run_dct_only_phase(state, opt, num_steps, program)
+        key = (phase, cands is not None, sdf_lin is not None)
+        program = program or step_graph.eager(self.device)
+        cands, sdf_lin = stage_contact(program, key, cands, sdf_lin)
         return self._run_steps(
             state, opt, self.phase_mask(phase), num_steps,
             lambda st: self.phase_loss(phase, st, target_6d, frame_weights,
-                                       cands, sdf_lin))
+                                       cands, sdf_lin), program=program,
+            key=key)
 
     @torch.no_grad()
     def hoisted_joints(self, state: ClipState) -> torch.Tensor:
@@ -538,29 +589,37 @@ class ClipSolver:
         return losses.dct_trajectory(joints_w, state.c_dct,
                                      self.config.window) * self.config.dct_mult
 
-    def _run_dct_only_phase(self, state, opt, num_steps: int
+    def _run_dct_only_phase(self, state, opt, num_steps: int,
+                            program: Optional[step_graph.PhaseProgram] = None
                             ) -> torch.Tensor:
         """dct_a optimizes c_dct alone: the body is frozen, so the world
         joints are computed once, without grad, and each step is the DCT
         residual and its c_dct gradient (the other three leaves keep zero
         gradients and move on their Adam moments)."""
-        joints_w = self.hoisted_joints(state)
+        program = program or step_graph.eager(self.device)
+        joints_w, = program.stage(("dct_a", "joints"),
+                                  (self.hoisted_joints(state),))
         return self._run_steps(
             state, opt, self.phase_mask("dct_a"), num_steps,
-            lambda st: self.dct_a_loss(joints_w, st))
+            lambda st: self.dct_a_loss(joints_w, st), program=program,
+            key=("dct_a", False, False))
 
     def _run_phase_auto(self, state, opt, target_6d, frame_weights,
-                        num_steps: int, phase: str) -> torch.Tensor:
+                        num_steps: int, phase: str,
+                        program: Optional[step_graph.PhaseProgram] = None
+                        ) -> torch.Tensor:
         """Contact phases with lazy tables run as chunks of
         contact_refresh_steps steps, rebuilding the candidate tables (and
         the SDF linearization when a scene SDF is given) before each
         chunk. An SDF with contact_refresh_steps=0 refreshes its
-        linearization every DEFAULT_REFRESH_STEPS steps."""
+        linearization every DEFAULT_REFRESH_STEPS steps. Every chunk
+        replays the phase's one graph on the program's route: each
+        refresh is copied into the buffers it reads."""
         lazy_contact = self._use_lazy_contact(phase)
         lazy_sdf = self.sdf is not None and phase in self._CONTACT_PHASES
         if not (lazy_contact or lazy_sdf):
             return self._run_phase(state, opt, target_6d, frame_weights,
-                                   num_steps, phase)
+                                   num_steps, phase, program=program)
         chunk = max(1, self.config.contact_refresh_steps
                     or DEFAULT_REFRESH_STEPS)
         hists = []
@@ -571,7 +630,7 @@ class ClipSolver:
             lin = self._refresh_sdf(state) if lazy_sdf else None
             hists.append(self._run_phase(state, opt, target_6d,
                                          frame_weights, k, phase, cands,
-                                         lin))
+                                         lin, program))
             left -= k
         return torch.cat(hists)
 
@@ -583,12 +642,15 @@ class ClipSolver:
         return vert_s + local_s + rec + skate
 
     def _run_skate_phase(self, state, opt, target_6d, frame_weights,
-                         num_steps: int, weight_right) -> torch.Tensor:
+                         num_steps: int, weight_right,
+                         program: Optional[step_graph.PhaseProgram] = None
+                         ) -> torch.Tensor:
         """Anti-foot-skate refinement over the body sequence only."""
         return self._run_steps(
             state, opt, self.phase_mask("skate"), num_steps,
             lambda st: self.skate_loss(st, target_6d, frame_weights,
-                                       weight_right))
+                                       weight_right), program=program,
+            key=("skate", False, False))
 
     # -- public API ------------------------------------------------------------
 
@@ -605,9 +667,20 @@ class ClipSolver:
 
         Returns the final state and the per-step loss history of each
         phase; the wall seconds of each stage land in
-        ``self.phase_seconds``."""
+        ``self.phase_seconds``, the seconds of each phase's graph
+        captures (inside its stage's) in ``self.capture_seconds``."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}: one of {MODES}")
+        program = self.program()
+        try:
+            return self._fit(body_75, camera_ext, mode, verbose,
+                             checkpoint_dir, program)
+        finally:
+            self.capture_seconds = capture_seconds(program)
+            program.close()
+
+    def _fit(self, body_75, camera_ext, mode, verbose, checkpoint_dir,
+             program):
         cfg = self.config
         hist: Dict[str, np.ndarray] = {}
         self.phase_seconds = {}
@@ -620,8 +693,6 @@ class ClipSolver:
             self.phase_seconds[name] = time.perf_counter() - t0
             return out
 
-        # 'init' includes the process's first torch.optim construction,
-        # which imports torch._dynamo (seconds, once per process)
         def init():
             state, target_6d, frame_weights = self.init_state(body_75,
                                                               camera_ext)
@@ -637,8 +708,8 @@ class ClipSolver:
 
         def phase(name, num_steps):
             hist[name] = timed(name, lambda: self._run_phase_auto(
-                state, opt, target_6d, frame_weights, num_steps,
-                name)).numpy()
+                state, opt, target_6d, frame_weights, num_steps, name,
+                program)).numpy()
             ckpt(name)
 
         n_a = int(cfg.num_iter * cfg.stage_split)
@@ -653,7 +724,8 @@ class ClipSolver:
                                         self._run_skate_phase(
                                             state, opt, target_6d,
                                             frame_weights, n_c,
-                                            weight_right)).numpy()
+                                            weight_right,
+                                            program)).numpy()
             ckpt("local_skate")
         elif mode == "global":
             phase("global_a", n_a)

@@ -1,0 +1,191 @@
+"""The phase program: each optimization phase's step captured once as a
+CUDA graph and replayed for the rest of the phase.
+
+The counterpart of the JAX package's one jitted ``lax.scan`` per phase:
+``ClipSolver._run_phase`` (fpv4d/solve/clip_solve.py:639-714),
+``_make_dct_only_phase`` (:716-762), ``phase_step_body`` (:764-841) and
+``_run_skate_phase`` (:843-877); for the fleet, ``build_sharded_step``
+and ``phase_scan`` (fpv4d/parallel/sharding.py:187-330) and
+``MultiClipSolver._get_step`` (fpv4d/parallel/multi_clip.py:69).
+
+A step (solve/clip_solve.py ``ClipSolver._run_steps``) zeroes the
+gradients in place, computes the masked loss, runs the backward, takes
+the Adam step (solve/adam.py) and returns the loss. ``PhaseProgram.run``
+runs a phase's steps:
+
+* on the graph route, the first WARMUP_STEPS steps of a key (over its
+  runs, should a chunk be shorter) run eagerly on a side stream (real
+  steps of the phase: their losses go into its history); then one step
+  is captured with ``torch.cuda.graph``, which
+  records and runs nothing, and the graph is replayed for the remaining
+  steps, each replay's loss copied from the graph's static output into
+  the phase's history on the device. Later runs of the same key (the
+  next chunk of a phase whose candidate tables are refreshed between
+  chunks) replay the graph from their first step. Every graph of one
+  program shares one memory pool, released by ``close``;
+* on the eager route (the CPU, and the card when asked), the same step
+  runs ``num_steps`` times.
+
+A graph reads its inputs at the addresses it was captured on. Inputs
+that change between runs of one key (candidate tables, the SDF
+linearization, dct_a's hoisted joints) go through ``stage``, which
+copies each new value into the buffers of the first; everything else a
+step reads (the leaves, the Adam state, targets, weights, scenes,
+grids) is fixed for the life of the program, one fit. A failed capture
+or replay raises: there is no fallback to the eager route.
+
+The kernels' launch counts (ops/cand_cuda.py, ops/chamfer_cuda.py) grow
+where their wrappers run, which a replay does not: the program takes
+back what the wrappers counted while the step was being captured (the
+capture launches nothing) and adds, for each replay, the launches one
+captured step holds.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Hashable, List, Optional, Sequence
+
+import torch
+
+from fpv4d_torch.ops import cand_cuda, chamfer_cuda
+
+# eager steps of a key before its capture (cuBLAS handles and
+# workspaces, the model's per-subset tables and the DCT basis are made
+# there, never inside a capture)
+WARMUP_STEPS = 2
+
+# the modules whose `launches` counts a replay must advance
+COUNTED = (cand_cuda, chamfer_cuda)
+
+
+def _counts() -> List[int]:
+    return [m.launches for m in COUNTED]
+
+
+class CudaGraphStep:
+    """`step` captured as a CUDA graph on `stream` into the memory pool
+    `pool`; ``out`` is the captured step's output, which every
+    ``replay()`` rewrites."""
+
+    def __init__(self, step: Callable[[], torch.Tensor], pool, stream):
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            self.out = step()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class PhaseProgram:
+    """The phases of one fit on `device`: captured and replayed
+    (`graphs`, CUDA only) or eager. `make_graph(step, pool, stream)`
+    captures a step (CudaGraphStep; the tests pass a stand-in)."""
+
+    def __init__(self, device, graphs: bool,
+                 make_graph: Callable = CudaGraphStep):
+        self.device = torch.device(device)
+        if graphs and make_graph is CudaGraphStep \
+                and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not "
+                             f"{self.device}")
+        self.graphs = graphs
+        self._make_graph = make_graph
+        on_card = graphs and self.device.type == "cuda"
+        self.pool = torch.cuda.graph_pool_handle() if on_card else None
+        self.stream = torch.cuda.Stream(self.device) if on_card else None
+        self._steps: Dict[Hashable, tuple] = {}
+        self._warm: Dict[Hashable, int] = {}
+        self._static: Dict[Hashable, tuple] = {}
+        # host seconds of each key's capture
+        self.capture_seconds: Dict[Hashable, float] = {}
+
+    def stage(self, key: Hashable, tensors: Sequence[torch.Tensor]
+              ) -> tuple:
+        """`tensors` as a graph of this program reads them: on the graph
+        route, the first call's copies, into which every later call of
+        `key` copies its values; on the eager route, the tensors."""
+        if not self.graphs:
+            return tuple(tensors)
+        held = self._static.get(key)
+        with torch.no_grad():
+            if held is None:
+                held = tuple(t.detach().clone() for t in tensors)
+                self._static[key] = held
+            else:
+                for h, t in zip(held, tensors):
+                    h.copy_(t)
+        return held
+
+    def run(self, key: Hashable, step: Callable[[], torch.Tensor],
+            num_steps: int) -> torch.Tensor:
+        """num_steps steps of `step` (which returns the step's detached
+        loss) -> the losses [num_steps, ...] on the device."""
+        hist: Optional[torch.Tensor] = None
+
+        def record(i: int, loss: torch.Tensor):
+            nonlocal hist
+            if hist is None:
+                hist = torch.empty((num_steps,) + loss.shape,
+                                   dtype=torch.float32, device=loss.device)
+            hist[i].copy_(loss)
+
+        if num_steps <= 0:
+            return torch.empty(0, dtype=torch.float32, device=self.device)
+        if not self.graphs:
+            for i in range(num_steps):
+                record(i, step())
+            return hist
+        first = 0
+        captured = self._steps.get(key)
+        if captured is None:
+            warm = self._warm.get(key, 0)
+            first = min(WARMUP_STEPS - warm, num_steps)
+            for i in range(first):
+                record(i, self._side(step))
+            self._warm[key] = warm + first
+            if first == num_steps:
+                return hist
+            captured = self._capture(key, step)
+        graph, per_step = captured
+        for i in range(first, num_steps):
+            graph.replay()
+            record(i, graph.out)
+        for m, n in zip(COUNTED, per_step):
+            m.launches += n * (num_steps - first)
+        return hist
+
+    def _side(self, step: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """One eager step on the side stream, ordered after everything
+        queued on the current stream and before what follows there."""
+        if self.stream is None:
+            return step()
+        main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            out = step()
+        main.wait_stream(self.stream)
+        return out
+
+    def _capture(self, key: Hashable, step: Callable[[], torch.Tensor]):
+        t0 = time.perf_counter()
+        before = _counts()
+        graph = self._make_graph(step, self.pool, self.stream)
+        per_step = [a - b for a, b in zip(_counts(), before)]
+        for m, n in zip(COUNTED, before):
+            m.launches = n
+        self.capture_seconds[key] = time.perf_counter() - t0
+        self._steps[key] = (graph, per_step)
+        return graph, per_step
+
+    def close(self) -> None:
+        """Drop the graphs and the staged buffers (their memory pool goes
+        with the last reference to it)."""
+        self._steps.clear()
+        self._warm.clear()
+        self._static.clear()
+        self.pool = None
+
+
+def eager(device) -> PhaseProgram:
+    """A program that runs every step eagerly."""
+    return PhaseProgram(device, graphs=False)

@@ -4,8 +4,11 @@ Stage-granular resume is the per-frame pkl layout of io/body_pkl.py:
 re-running a stage resumes from its input directory
 (``latest_stage_output``). Mid-optimization checkpoints of the solver
 (decision variables, Adam state, step count) are ``torch.save`` files
-of ``{"state", "opt_state", "step"}``. The reference writes orbax
-checkpoints instead; this module neither reads nor writes those.
+of ``{"state", "opt_state", "step"}``; the Adam state is
+solve/adam.py's ``state_dict`` (torch.optim.Adam's layout: each leaf's
+moments and the shared step count, on the solver's device), which
+``Adam.load_state_dict`` copies back in place. The reference writes
+orbax checkpoints instead; this module neither reads nor writes those.
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ def save_solver_state(path: str, state: Any, optimizer, step: int = 0
 def load_solver_state(path: str, device="cpu"
                       ) -> Tuple[Dict[str, torch.Tensor], Dict, int]:
     """(state tensors by leaf name on `device`, optimizer state_dict,
-    step). Load the state_dict into an optimizer over the same leaves
-    with ``optimizer.load_state_dict``."""
+    step). Load the state_dict into an Adam over the same leaves with
+    ``Adam.load_state_dict`` (ClipSolver.make_optimizer of the loaded
+    state), then run the phases that follow the checkpoint's."""
     ckpt = torch.load(path, map_location=device, weights_only=True)
     return ckpt["state"], ckpt["opt_state"], int(ckpt["step"])
 

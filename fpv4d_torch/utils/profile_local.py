@@ -6,12 +6,15 @@ Builds the standard problem at full size, seeds the state and the one
 Adam state as ``ClipSolver.fit`` does, and measures each unit of the
 local-mode solve in turn: a candidate-table refresh, a local_a step
 (contact against the refreshed tables), a local_b step and a skate
-step. For each unit it times ``--steps`` runs on the host clock around
-a synchronised window, then profiles ``--steps`` more with
-torch.profiler and sums the device time of every kernel. It prints one
-JSON object: the card's name and power limit and, per unit, wall ms,
-device-busy ms and busy share per run, K1's device ms per run, kernel
-launches per run and the kernels with the most device time.
+step. The steps run as the solver's fit runs them (one phase program:
+on the card each phase's step captured once as a CUDA graph and
+replayed; ``--eager`` runs them eagerly). For each unit it times
+``--steps`` runs on the host clock around a synchronised window, then
+profiles ``--steps`` more with torch.profiler and sums the device time
+of every kernel, those inside a graph's replays included. It prints one
+JSON object: the card's name and power limit, the route and, per unit,
+wall ms, device-busy ms and busy share per run, K1's device ms per run,
+kernels run per run and the kernels with the most device time.
 
 Exits non-zero without a CUDA device unless ``--device cpu`` is given
 (a rehearsal of the control flow at a small size: no device numbers).
@@ -52,7 +55,11 @@ def _kernel_times(prof):
 
 
 def measure(fn, steps: int, dev: torch.device, top: int = 6) -> dict:
-    """Wall and device time per run of fn(n) (which runs n units)."""
+    """Wall and device time per run of fn(n) (which runs n units). On a
+    phase program's graph route the warm-up captures the graph, and the
+    windows replay it; where the profiler shows fewer than 2 kernels a
+    run (a replay's kernels unseen), the device numbers are None and
+    ``seen`` is False."""
     fn(3)                                          # warm-up
     _sync(dev)
     t0 = time.perf_counter()
@@ -60,7 +67,7 @@ def measure(fn, steps: int, dev: torch.device, top: int = 6) -> dict:
     _sync(dev)
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     rec = {"wall_ms": wall_ms, "device_ms": None, "busy_share": None,
-           "k1_ms": None, "launches": None, "top": None}
+           "k1_ms": None, "launches": None, "top": None, "seen": None}
     if dev.type != "cuda":
         return rec
     # the device's activity alone: every number here is a kernel's or a
@@ -71,9 +78,12 @@ def measure(fn, steps: int, dev: torch.device, top: int = 6) -> dict:
         fn(steps)
         _sync(dev)
     ks = _kernel_times(prof)
+    if sum(c for _, _, c in ks) < 2 * steps:
+        rec["seen"] = False
+        return rec
     dev_ms = sum(us for _, us, _ in ks) / 1e3 / steps
     k1_us = sum(us for k, us, _ in ks if "cand_nn_kernel" in k)
-    rec.update(device_ms=dev_ms, busy_share=dev_ms / wall_ms,
+    rec.update(seen=True, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
                k1_ms=k1_us / 1e3 / steps,
                launches=sum(c for _, _, c in ks) / steps,
                top=[{"kernel": k[:96], "ms": us / 1e3 / steps,
@@ -88,6 +98,8 @@ def main(argv=None) -> int:
     ap.add_argument("--T", type=int, default=900)
     ap.add_argument("--num-verts", type=int, default=10475)
     ap.add_argument("--scene-pts", type=int, default=100_489)
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps eagerly on the card (no graphs)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -97,10 +109,13 @@ def main(argv=None) -> int:
     prob = standard_problem(T=args.T, num_verts=args.num_verts,
                             scene_pts=args.scene_pts, device=dev)
     s = prob.solver
+    if args.eager:
+        s.step_graphs = False
     state, target, fw = s.init_state(prob.body, prob.cam)
     state, opt = s.make_optimizer(state)
     cands = s._refresh_cands(state)
     weight_right = s.detect_contact(state)
+    program = s.program()
 
     def refresh(n):
         for _ in range(n):
@@ -109,13 +124,14 @@ def main(argv=None) -> int:
     units = {
         "refresh": refresh,
         "local_a": lambda n: s._run_phase(state, opt, target, fw, n,
-                                          "local_a", cands),
+                                          "local_a", cands, program=program),
         "local_b": lambda n: s._run_phase(state, opt, target, fw, n,
-                                          "local_b"),
+                                          "local_b", program=program),
         "local_skate": lambda n: s._run_skate_phase(
-            state, opt, target, fw, n, weight_right),
+            state, opt, target, fw, n, weight_right, program),
     }
-    out = {"device": None, "power_limit": None, "T": args.T,
+    out = {"device": None, "power_limit": None,
+           "step_graphs": program.graphs, "T": args.T,
            "contact_vertices": len(s.contact_vids),
            "P": int(cands.cand.shape[1]), "steps": args.steps}
     if dev.type == "cuda":
@@ -126,6 +142,8 @@ def main(argv=None) -> int:
             timeout=60).stdout.strip().splitlines()[0]
     for name, fn in units.items():
         out[name] = measure(fn, args.steps, dev)
+    out["capture_s"] = {k[0]: v for k, v in program.capture_seconds.items()}
+    program.close()
     print(json.dumps(out))
     return 0
 

@@ -45,7 +45,8 @@ _EXPECTED = (
     "fpv4d_torch.models.cvae", "fpv4d_torch.ops.chamfer_ref",
     "fpv4d_torch.utils.monitor", "fpv4d_torch.utils.observability",
     "fpv4d_torch.utils.accuracy_report", "fpv4d_torch.io.native",
-    "fpv4d_torch.bench", "fpv4d_torch.utils.cost")
+    "fpv4d_torch.bench", "fpv4d_torch.utils.cost",
+    "fpv4d_torch.solve.adam", "fpv4d_torch.solve.step_graph")
 
 _HOST_LIBS = ("cv2", "PIL", "joblib")
 
@@ -93,3 +94,27 @@ def test_bench_reads_no_tpu_record():
     for rel in ("bench.py", "utils/cost.py"):
         src = (pkg / rel).read_text()
         assert not [r for r in _TPU_RECORDS if r in src], rel
+
+
+# the clip solve and the fleet step with solve/adam.py (capturable, on
+# the device); torch.optim stays in the keypoint fit and the smoother
+_NO_TORCH_OPTIM = ("solve/clip_solve.py", "solve/adam.py",
+                   "solve/step_graph.py", "parallel/multi_clip.py",
+                   "parallel/sharding.py")
+
+
+def test_the_clip_solve_uses_no_torch_optim():
+    import ast
+    root = Path(__file__).resolve().parents[1] / "fpv4d_torch"
+    for rel in _NO_TORCH_OPTIM:
+        tree = ast.parse((root / rel).read_text())
+        uses = [n.lineno for n in ast.walk(tree)
+                if (isinstance(n, ast.Attribute) and n.attr == "optim"
+                    and isinstance(n.value, ast.Name)
+                    and n.value.id == "torch")
+                or (isinstance(n, (ast.Import, ast.ImportFrom))
+                    and any("torch.optim" in (a.name or "")
+                            for a in n.names)
+                    or isinstance(n, ast.ImportFrom)
+                    and (n.module or "").startswith("torch.optim"))]
+        assert not uses, (rel, uses)

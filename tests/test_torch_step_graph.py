@@ -1,0 +1,411 @@
+"""The compiled phase: solve/adam.py and solve/step_graph.py.
+
+* the Adam against optax.adam on the same numpy-seeded leaves and
+  gradients for 20 steps (rtol 1e-6: the same operations in the same
+  order; measured ~1.5e-7 against XLA's CPU code);
+* a sync guard (a TorchDispatchMode raising on every op that reads a
+  value back to the host or has a data-dependent shape) around the
+  captured step of every phase, the capture stood in for on the CPU:
+  local_a on the lazy tables and on the exact grid, local_b, skate,
+  global_a on brute force, global_b, dct_a, dct_b, and the fleet's
+  chunked skate;
+* the graph route's plumbing (warm-up, capture, replays, staged tables
+  and linearizations through a phase's chunks, the fleet's chunks), with
+  a stand-in whose replay reruns the captured step: bit-equal to the
+  eager route;
+* the eager phase program's histories and final state against the JAX
+  package, at tests/test_torch_clip_solve.py's tolerances;
+* the Adam state through utils/checkpoint.py resuming a solve to the
+  same result;
+* launch accounting: replays x the launches one captured step holds,
+  the capture itself not counted;
+* on the card (`gpu`), the graph route against the eager one.
+
+The module imports no JAX: the card's machine runs its `gpu` test with
+``--noconftest``, and the tests that hold the port to JAX import it
+inside (skipping where it is missing, which it is not here).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from fpv4d_torch.ops import cand_cuda, chamfer_cuda
+from fpv4d_torch.parallel.multi_clip import MultiClipSolver
+from fpv4d_torch.solve import step_graph
+from fpv4d_torch.solve.adam import Adam
+from fpv4d_torch.solve.clip_solve import ClipSolver
+from fpv4d_torch.utils import checkpoint as CK
+from fpv4d_torch.utils.bench_problem import fleet_batch, standard_problem
+
+# ClipState's leaf shapes at T = 12, one DCT window
+SHAPES = [(12, 78), (), (12, 4, 4), (1, 23, 3, 5)]
+
+
+# -- the Adam -----------------------------------------------------------------
+
+@pytest.mark.parametrize("lr", [0.005, 0.1])
+def test_adam_matches_optax(lr):
+    """20 steps from the same leaves and gradients, one leaf's gradient
+    zero (a masked leaf) in every other step."""
+    jnp = pytest.importorskip("jax.numpy")
+    optax = pytest.importorskip("optax")
+    rng = np.random.RandomState(0)
+    leaves = [np.asarray(rng.randn(*s), np.float32) for s in SHAPES]
+    grads = [[np.asarray(rng.randn(*s) * 10.0 ** rng.uniform(-3, 1),
+                         np.float32) for s in SHAPES] for _ in range(20)]
+    for k in range(0, 20, 2):
+        grads[k][3] = np.zeros_like(grads[k][3])
+    ref = optax.adam(lr)
+    jp = [jnp.asarray(x) for x in leaves]
+    js = ref.init(jp)
+    tp = [torch.tensor(x) for x in leaves]
+    opt = Adam(tp, lr)
+    for g in grads:
+        upd, js = ref.update([jnp.asarray(x) for x in g], js, jp)
+        jp = optax.apply_updates(jp, upd)
+        opt.zero_grad()
+        for p, x in zip(tp, g):
+            p.grad += torch.from_numpy(x)
+        opt.step()
+    assert int(opt.count) == int(js[0].count) == 20
+    for a, b in zip(tp, jp):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-12)
+    for mine, theirs in ((opt.mu, js[0].mu), (opt.nu, js[0].nu)):
+        for a, b in zip(mine, theirs):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-30)
+
+
+def test_adam_select_steps_rows_in_place():
+    """select(sl) steps the rows of the leaves and moments in place from
+    a copy of the count: rows stepped that way equal the whole Adam's."""
+    rng = np.random.RandomState(1)
+    shapes = [(4, 12, 78), (4,), (4, 12, 4, 4)]
+    init = [torch.tensor(np.asarray(rng.randn(*s), np.float32))
+            for s in shapes]
+    grads = [torch.tensor(np.asarray(rng.randn(*s), np.float32))
+             for s in shapes]
+    whole = Adam([x.clone() for x in init], 0.01)
+    parts = Adam([x.clone() for x in init], 0.01)
+    for _ in range(3):
+        for p, g in zip(whole.params, grads):
+            p.grad.copy_(g)
+        whole.step()
+    for sl in (slice(0, 2), slice(2, 4)):
+        sub = parts.select(sl)
+        for _ in range(3):
+            for q, g in zip(sub.params, grads):
+                q.grad.copy_(g[sl])
+            sub.step()
+    parts.count.copy_(sub.count)
+    assert int(parts.count) == 3
+    for a, b in zip(parts.params + parts.mu + parts.nu,
+                    whole.params + whole.mu + whole.nu):
+        assert torch.equal(a, b)
+
+
+# -- stand-ins for a capture ----------------------------------------------------
+
+_SYNCS = {"aten._local_scalar_dense", "aten.nonzero", "aten.masked_select",
+          "aten.is_nonzero", "aten.lift_fresh", "aten._unique2"}
+
+
+class NoSync(TorchDispatchMode):
+    """Raises on an op that reads a value back to the host or makes a
+    tensor of host data (a capture cannot), and on boolean-mask indexing
+    (a data-dependent shape)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket._qualified_op_name.replace("::", ".")
+        if name in _SYNCS:
+            raise AssertionError(f"{name} in a captured step")
+        if name in ("aten.index", "aten.index_put", "aten.index_put_"):
+            idx = args[1] if len(args) > 1 else []
+            if any(isinstance(t, torch.Tensor) and t.dtype == torch.bool
+                   for t in idx):
+                raise AssertionError(f"boolean-mask {name} in a captured "
+                                     "step")
+        return func(*args, **(kwargs or {}))
+
+
+class GuardedCapture:
+    """Runs the step once under NoSync where a capture would record it;
+    a replay does nothing."""
+    captured = []
+
+    def __init__(self, step, pool, stream):
+        with NoSync():
+            self.out = step()
+        GuardedCapture.captured.append(self)
+
+    def replay(self):
+        pass
+
+
+class RerunCapture:
+    """Records the step as a capture does (nothing runs); each replay
+    reruns it, its loss the output a graph's replay rewrites."""
+
+    def __init__(self, step, pool, stream):
+        self.step = step
+        self.out = None
+
+    def replay(self):
+        self.out = self.step()
+
+
+def _programmed(solver, make_graph):
+    """solver.program() returns a graph-route program on the CPU with
+    `make_graph` for the capture; returns the programs it made."""
+    made = []
+
+    def program():
+        made.append(step_graph.PhaseProgram("cpu", True, make_graph))
+        return made[-1]
+
+    solver.program = program
+    return made
+
+
+def _small(nn_impl="grid", T=12, **cfg):
+    prob = standard_problem(T=T, num_verts=256, scene_pts=400, num_iter=20,
+                            num_iter_dct=160, skate_subset=64,
+                            contact_compact=32, nn_impl=nn_impl,
+                            device="cpu")
+    prob.solver.config = dataclasses.replace(
+        prob.solver.config, **dict(dict(window=T), **cfg))
+    return prob
+
+
+# every phase of each case, each captured once on the graph route
+_GUARD_CASES = {
+    "local, lazy tables": (dict(), "local",
+                           {"local_a", "local_b", "skate"}),
+    "local, exact grid": (dict(contact_refresh_steps=0), "local",
+                          {"local_a", "local_b", "skate"}),
+    "global, brute force": (dict(nn_impl="brute"), "global",
+                            {"global_a", "global_b"}),
+    "dct, lazy tables": (dict(), "dct", {"dct_a", "dct_b"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_GUARD_CASES))
+def test_captured_steps_never_sync(case):
+    kw, mode, phases = _GUARD_CASES[case]
+    prob = _small(**kw)
+    made = _programmed(prob.solver, GuardedCapture)
+    GuardedCapture.captured = []
+    _, hist = prob.solver.fit(prob.body, prob.cam, mode=mode)
+    assert {k[0] for k in made[0].capture_seconds} == phases
+    assert len(GuardedCapture.captured) == len(phases)
+    assert all(np.all(np.isfinite(v)) for v in hist.values())
+
+
+def test_fleet_chunked_skate_steps_never_sync():
+    """The fleet on one rank: each chunk of 2 of 4 clips captured once."""
+    prob = _small()
+    made = _programmed(prob.solver, GuardedCapture)
+    bodies, cams, scenes = fleet_batch(prob, 4)
+    MultiClipSolver(solver=prob.solver).fit(bodies, cams, scenes,
+                                            mode="local")
+    keys = set(made[0].capture_seconds)
+    assert {k for k in keys if k[0] == "skate"} == {
+        ("skate", False, False, 0), ("skate", False, False, 2)}
+    assert {k[0] for k in keys} == {"local_a", "local_b", "skate"}
+
+
+def _equal_runs(a, b):
+    (sa, ha), (sb, hb) = a, b
+    assert ha.keys() == hb.keys()
+    for k in ha:
+        assert np.array_equal(ha[k], hb[k]), k
+    for x, y in zip(sa, sb):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mode,nn_impl,sdf", [
+    ("local", "grid", False), ("global", "brute", False),
+    ("dct", "grid", False), ("global", "grid", True)])
+def test_graph_route_plumbing_matches_eager(mode, nn_impl, sdf):
+    """Warm-up, capture, replays and the staged tables (and SDF
+    linearizations) of each chunk, with replays that rerun the captured
+    step: the same bits as the eager route."""
+    from fpv4d_torch.ops import sdf as SDF
+    prob = _small(nn_impl=nn_impl, contact_refresh_steps=3)
+    if sdf:
+        prob.solver.sdf = SDF.plane_sdf(y0=-0.95, extent=4.0, dim=17)
+    eager = prob.solver.fit(prob.body, prob.cam, mode=mode)
+    made = _programmed(prob.solver, RerunCapture)
+    graphed = prob.solver.fit(prob.body, prob.cam, mode=mode)
+    assert made[0].capture_seconds                    # it captured
+    assert not (made[0]._steps or made[0]._static)    # closed after fit
+    _equal_runs(graphed, eager)
+
+
+def test_fleet_graph_route_plumbing_matches_eager():
+    prob = _small(contact_refresh_steps=1)
+    bodies, cams, scenes = fleet_batch(prob, 4)
+    mc = MultiClipSolver(solver=prob.solver)
+    eager = mc.fit(bodies, cams, scenes, mode="local")
+    _programmed(prob.solver, RerunCapture)
+    _equal_runs(mc.fit(bodies, cams, scenes, mode="local"), eager)
+
+
+# -- parity with the JAX package ------------------------------------------------
+
+_PARITY = {("local", "grid"): {"local_a": 1e-4, "local_b": 1e-4,
+                               "local_skate": 1e-3},
+           ("global", "brute"): {"global_a": 1e-4, "global_b": 1e-4}}
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """tests/test_torch_clip_solve.py (the JAX package's solver beside the
+    port's) and its scenario."""
+    tc = pytest.importorskip("test_torch_clip_solve",
+                             reason="needs the JAX package")
+    return tc, tc.make_scenario()
+
+
+@pytest.mark.parametrize("mode,nn_impl", sorted(_PARITY))
+def test_eager_program_matches_reference(reference, mode, nn_impl):
+    tc, sc = reference
+    js, ts = tc._solvers(sc, nn_impl=nn_impl, contact_compact=64)
+    assert ts.step_graphs is False and ts.program().graphs is False
+    jstate, jh, tstate, th = tc._fit_both(sc, js, ts, mode)
+    for k, rtol in _PARITY[mode, nn_impl].items():
+        np.testing.assert_allclose(th[k], jh[k], rtol=rtol, err_msg=k)
+    tc._check_final(jstate, tstate)
+
+
+# -- checkpoint -----------------------------------------------------------------
+
+def test_checkpoint_resumes_the_solve(tmp_path):
+    """local_a.pt of a local fit, loaded into a fresh Adam over the
+    loaded leaves, runs local_b, detection and skate to the fit's own
+    histories and final state."""
+    prob = _small(contact_refresh_steps=4)
+    s = prob.solver
+    final, hist = s.fit(prob.body, prob.cam, mode="local",
+                        checkpoint_dir=str(tmp_path))
+    leaves, opt_state, step = CK.load_solver_state(
+        str(tmp_path / "local_a.pt"))
+    assert step == len(hist["local_a"])
+    st0, target, weights = s.init_state(prob.body, prob.cam)
+    state, opt = s.make_optimizer(type(st0)(**leaves))
+    opt.load_state_dict(opt_state)
+    assert int(opt.count) == step
+    cfg = s.config
+    h_b = s._run_phase_auto(state, opt, target, weights,
+                            cfg.num_iter - len(hist["local_a"]), "local_b")
+    wr = s.detect_contact(state)
+    h_s = s._run_skate_phase(state, opt, target, weights,
+                             len(hist["local_skate"]), wr)
+    assert np.array_equal(h_b.numpy(), hist["local_b"])
+    assert np.array_equal(h_s.numpy(), hist["local_skate"])
+    for x, y in zip(state, final):
+        assert torch.equal(x.detach(), y)
+    assert int(opt.count) == sum(len(v) for v in hist.values())
+
+
+# -- launch accounting and the route's switches -----------------------------------
+
+class CountingCapture:
+    """A capture that runs the step (whose stand-in kernels count) and
+    replays nothing."""
+
+    def __init__(self, step, pool, stream):
+        self.out = step()
+
+    def replay(self):
+        pass
+
+
+def test_launch_accounting(monkeypatch):
+    """Warm-up steps are counted by the wrappers, the capture is not,
+    and each replay adds the launches of one captured step; a second run
+    of a key replays from its first step."""
+    monkeypatch.setattr(cand_cuda, "launches", 0)
+    monkeypatch.setattr(chamfer_cuda, "launches", 0)
+
+    def step():
+        cand_cuda.launches += 1
+        chamfer_cuda.launches += 2
+        return torch.zeros(())
+
+    prog = step_graph.PhaseProgram("cpu", True, CountingCapture)
+    h = prog.run(("a",), step, 10)
+    assert h.shape == (10,)
+    assert (cand_cuda.launches, chamfer_cuda.launches) == (10, 20)
+    prog.run(("a",), step, 7)
+    assert (cand_cuda.launches, chamfer_cuda.launches) == (17, 34)
+    w = step_graph.WARMUP_STEPS
+    prog.run(("b",), step, w - 1)                       # all warm-up
+    prog.run(("b",), step, 1)                           # the last of it
+    assert ("b",) not in prog._steps
+    assert (cand_cuda.launches, chamfer_cuda.launches) == (17 + w, 34 + 2 * w)
+    prog.run(("b",), step, 3)                           # capture, 3 replays
+    assert ("b",) in prog._steps
+    assert (cand_cuda.launches, chamfer_cuda.launches) == (
+        20 + w, 40 + 2 * w)
+    assert set(prog.capture_seconds) == {("a",), ("b",)}
+    assert prog.run(("c",), step, 0).shape == (0,)
+
+
+def test_routes_on_the_cpu():
+    prob = _small()
+    m = prob.model
+    kw = dict(vposer_params=prob.vp, scene_verts=prob.scene,
+              contact_vids=prob.solver.contact_vids,
+              contact_vids_left=prob.solver.contact_vids_left,
+              contact_vids_right=prob.solver.contact_vids_right,
+              device="cpu")
+    assert ClipSolver(m, **kw).step_graphs is False
+    assert ClipSolver(m, step_graphs=False, **kw).step_graphs is False
+    with pytest.raises(ValueError, match="step_graphs"):
+        ClipSolver(m, step_graphs=True, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        step_graph.PhaseProgram("cpu", True)
+
+
+# -- on the card -------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,nn_impl", [("local", "grid"),
+                                          ("global", "brute"),
+                                          ("dct", "grid")])
+def test_graph_route_matches_eager_on_the_card(cuda_device, mode, nn_impl):
+    """T = 12: the graph route's histories within chip_smoke.py's
+    _hold_histories limits of the eager route's (first loss 1e-5, later
+    2e-2), the same K1 and K2 launches."""
+    prob = standard_problem(T=12, num_verts=512, scene_pts=2500,
+                            num_iter=60, num_iter_dct=200, skate_subset=64,
+                            contact_compact=64, nn_impl=nn_impl,
+                            device=cuda_device)
+    s = prob.solver
+    runs = {}
+    for graphs in (False, True):
+        s.step_graphs = graphs
+        cand_cuda.launches = chamfer_cuda.launches = 0
+        _, hist = s.fit(prob.body, prob.cam, mode=mode)
+        torch.cuda.synchronize()
+        runs[graphs] = (hist, cand_cuda.launches, chamfer_cuda.launches)
+    (he, k1e, k2e), (hg, k1g, k2g) = runs[False], runs[True]
+    assert (k1g, k2g) == (k1e, k2e) and k1e + k2e > 0
+    assert set(s.capture_seconds) == set(hg)
+    first = next(iter(he))
+    assert abs(hg[first][0] - he[first][0]) <= 1e-5 * abs(he[first][0])
+    for k in he:
+        rel = np.abs(hg[k] - he[k]) / np.abs(he[k])
+        assert np.all(np.isfinite(hg[k])) and rel.max() < 2e-2, k
