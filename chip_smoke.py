@@ -51,11 +51,14 @@ Phases, each fatal on failure:
                 against the ground truth; then one batched Adam fit of
                 8 clips x 900 frames, and one fit at T=60 with hand and
                 face keypoints (the landmark path); neither kernel runs;
+                the Adam stages on the graph route (each captured once;
+                capture seconds printed);
  11. smoother   fit_independent at T=900, fit_sequential and
                 fit_sequential_motion at T=300 (15,000 sequential Adam
-                steps each); seconds;
+                steps each, the frame body captured once and replayed
+                per frame); seconds;
  12. reference  a small Adam keypoint fit and a small fit_sequential on
-                the card against the same on the CPU;
+                the card (graph route) against the same on the CPU;
  13. pipeline   ``fit`` -> ``smooth`` -> ``globalopt local`` in
                 subprocesses on seeded OpenPose JSONs with hands, each
                 on the card by default: each exits 0 and writes its pkls;
@@ -175,8 +178,9 @@ Phases, each fatal on failure:
                 clip_joint_opt_300f_local_mode_wallclock, correct, every
                 compact key, both kernel checks exact, K1 once per
                 contact step of each solve and K2 never (the grid), every
-                share of a phase and of a solve set and in [0, 1]; the JAX
-                package's bench records untouched;
+                share of a phase and of a solve set and in [0, 1], the
+                keypoint fits on the graph route with their captures;
+                the JAX package's bench records untouched;
  32. compiled   the compiled phase (solve/step_graph.py): the standard
                 local fit four times in turns, eager (step_graphs=False),
                 graph, graph, eager; then global/brute and dct/grid once
@@ -186,10 +190,23 @@ Phases, each fatal on failure:
                 counted as replays x the launches of one captured step);
                 each graph run's histories held to the eager run's by
                 _hold_histories ("graph vs eager"), whether they are
-                bit-equal, and each final leaf's largest difference.
-Every solve and fleet fit (phases 5-7, 13-19, 26, 30, 31) takes the
-default route, graphs on the card; the frames axis (21-22) runs eagerly
-(its collectives are inside the step). Every count is set to 0 just
+                bit-equal, and each final leaf's largest difference;
+ 33. frame      the compiled per-frame stages: phase 10's three Adam
+     stages     keypoint fits (T=900, 8 x 900, hands and face at T=60)
+                and the smoothers (fit_independent at T=900,
+                fit_sequential and fit_sequential_motion at T=100), each
+                graph first, then eager (step_graphs=False): seconds,
+                frames/s, capture seconds per key (graph route only),
+                peak memory, K1 0 and K2 0 launches, whether graph and
+                eager are bit-equal; keypoint histories held within
+                phase 12's 1e-3 relative (each stage finite and
+                falling), smoother results by phase 12's rule (95% of
+                entries within 1e-4, all within 1e-2).
+Every solve and fleet fit (phases 5-7, 13-19, 26, 30, 31) and every
+Adam keypoint fit and smoother (10-13, 30, 31) takes the default route,
+graphs on the card; the frames axis (21-22) and the L-BFGS keypoint
+stages run eagerly (collectives inside the step; host reads ending each
+line search). Every count is set to 0 just
 before its path runs and read just after (phase 31's by the bench
 itself, around each solve).
 The second-to-last lines are a JSON object of kernel results and the
@@ -488,18 +505,20 @@ def _run_keypoints(label, model, vp, kp, cfg, C, K, **kw):
     (tests/test_torch_keypoint_fit.py): it is held by its median
     recovery instead (``_keypoint_phase``). Returns (params, hist,
     seconds)."""
-    from fpv4d_torch.solve.keypoint_fit import fit_keypoints
+    from fpv4d_torch.solve import keypoint_fit
     _reset_counts(C, K)
     t0 = time.perf_counter()
-    params, hist = fit_keypoints(model, vp, kp, cfg, **kw)
+    params, hist = keypoint_fit.fit_keypoints(
+        model, vp, kp, cfg, device=model.v_template.device, **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     frames = int(np.prod(kp.shape[:-2]))
     got = (C.launches, K.launches)
+    cap = {k: round(v, 4) for k, v in keypoint_fit.capture_seconds.items()}
     print(f"[{label}] {cfg.optimizer}, {cfg.num_iter} steps per stage, "
           f"{frames} frames: {secs:.3f} s, {frames / secs:.1f} frames/s; "
-          f"K1 launches {got[0]}, K2 launches {got[1]} (expected 0, 0)",
-          flush=True)
+          f"capture s {cap}; K1 launches {got[0]}, K2 launches {got[1]} "
+          f"(expected 0, 0)", flush=True)
     for k in _STAGES:
         h = np.asarray(hist[k]).reshape(-1, cfg.num_iter)
         print(f"[{label}] {k}: loss {h[:, 0].mean():.6f} -> "
@@ -567,7 +586,8 @@ def _hands_face_fixture(model, vp, T: int, dev, seed: int = 5):
 
 def _keypoint_phase(model, vp, dev, C, K):
     """Phase 10 on the standard problem's model and VPoser weights.
-    Returns the Adam fit's [900, 75] parameters."""
+    Returns the Adam fit's [900, 75] parameters and the inputs of its
+    three Adam fits (phase 33 runs them again on both routes)."""
     from fpv4d_torch.config import KeypointFitConfig
     from fpv4d_torch.utils.bench_problem import keypoint_problem
     T, clips = 900, 8
@@ -610,7 +630,11 @@ def _keypoint_phase(model, vp, dev, C, K):
           f"|expression| {np.abs(expr).mean():.4f}", flush=True)
     if not (np.all(np.isfinite(jaw)) and np.abs(expr).max() > 0):
         raise AssertionError("face fit: jaw/expression did not move")
-    return adam_params
+    fits = {"adam T=900": (kp, kcfg, {}), "batched 8 x 900": (kp_b, kcfg, {}),
+            "hands+face T=60": (kp60, KeypointFitConfig(num_iter=120),
+                                dict(hand_left=hl, hand_right=hr,
+                                     face=face))}
+    return adam_params, fits
 
 
 def _frame_diff(x: np.ndarray) -> float:
@@ -673,7 +697,7 @@ def _stages_card_vs_cpu(dev):
                                       sparse_weights=True, device=d)
         vp = vposer.random_params(0, device=d)
         kp, cfg = keypoint_problem(model, vp, 24, num_iter=10)
-        res.append(fit_keypoints(model, vp, kp, cfg))
+        res.append(fit_keypoints(model, vp, kp, cfg, device=d))
     (pg, hg), (pc, hc) = res
     first = abs(hg["camera"][0] - hc["camera"][0]) / abs(hc["camera"][0])
     print(f"[reference] keypoints camera first loss rel diff cuda vs cpu "
@@ -2052,7 +2076,8 @@ def _accuracy_phase(C, K):
 _BENCH_KEYS = (
     "device", "power_limit", "modes_steady_s", "solve_mfu",
     "launches_per_solve", "phase_ms_per_step", "k1_ms", "k2_ms",
-    "keypoint_fit_fps", "keypoint_fleet_fps", "keypoint_optimizer_fps",
+    "keypoint_fit_fps", "keypoint_step_graphs", "keypoint_capture_s",
+    "keypoint_fleet_fps", "keypoint_optimizer_fps",
     "fleet_clips_per_hour_per_chip", "fleet_per_clip_vs_single",
     "fleet_modes_clips_per_hour", "fleet_max_clips_per_chip",
     "fleet_implied_gb_per_clip", "fleet_gib_per_clip", "accuracy",
@@ -2107,6 +2132,9 @@ def _bench_phase(extra_args=(), T: int = 300):
                                 and ex["cand_kernel_ok"] is True),
         "launches per solve": ex["launches_per_solve"] == {
             "local": [n_a, 0], "global": [n_a, 0]},
+        "keypoint graph route": (
+            ex["keypoint_step_graphs"] is True
+            and all(v > 0 for v in ex["keypoint_capture_s"].values())),
         "shares in [0, 1]": all(v is not None and 0 <= v <= 1
                                 for v in shares),
         "records untouched": all(
@@ -2196,6 +2224,109 @@ def _compiled_phase(prob, dev, C, K, n_a, n_dct_b):
     print(f"[compiled] phase 32 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return out
+
+
+def _frame_stages_phase(model, vp, kp_fits, body, dev, C, K):
+    """Phase 33: the compiled per-frame stages. Each of phase 10's three
+    Adam keypoint fits (T = 900, 8 x 900 batched, hands and face at T =
+    60) and each smoother (fit_independent at T = 900, fit_sequential and
+    fit_sequential_motion at T = 100 of phase 10's fit) on both routes,
+    graph first, then eager (step_graphs=False). Per run, with both counts
+    at 0 and the peak memory reset: seconds, frames/s, the capture
+    seconds per key (present on the graph route only), the peak memory,
+    K1 and K2 launches (0 and 0); per pair, whether graph and eager are
+    bit-equal. Holds: keypoint histories within phase 12's 1e-3
+    relative, each stage finite and falling (_run_keypoints); smoother
+    results by phase 12's rule, 95% of entries within 1e-4 and all
+    within 1e-2. Returns the per-run records."""
+    from fpv4d_torch.models import motion_gru
+    from fpv4d_torch.solve import frame_fit, keypoint_fit
+
+    def timed(label, route, fn, captures, frames):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(C, K)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = (C.launches, K.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        cap = {k: round(v, 4) for k, v in captures.items()}
+        print(f"[frame stages] {label} {route}: {secs:.3f} s, "
+              f"{frames / secs:.1f} frames/s; capture s {cap}; peak "
+              f"{peak:.3f} GiB; K1 launches {got[0]}, K2 launches "
+              f"{got[1]} (expected 0, 0)", flush=True)
+        if got != (0, 0):
+            raise AssertionError(f"frame stages {label} {route}: a kernel "
+                                 f"ran off its path {got}")
+        if (route == "graph") != bool(cap):
+            raise AssertionError(f"frame stages {label} {route}: "
+                                 f"captures {cap}")
+        return out, {"route": route, "s": secs, "frames_per_s":
+                     frames / secs, "capture_s": cap, "peak_gib": peak}
+
+    t_phase = time.perf_counter()
+    records = {}
+    for label, (kp, cfg, kw) in kp_fits.items():
+        frames = int(np.prod(kp.shape[:-2]))
+        runs = {}
+        for route, graphs in (("graph", True), ("eager", False)):
+            (params, hist, _), rec = timed(
+                f"keypoints {label}", route, lambda: _run_keypoints(
+                    f"frame stages/keypoints {label} {route}", model, vp,
+                    kp, cfg, C, K, step_graphs=graphs, **kw),
+                keypoint_fit.capture_seconds, frames)
+            runs[route] = (params, hist, rec)
+        (pg, hg, _), (pe, he, _) = runs["graph"], runs["eager"]
+        rel = max(float(np.max(np.abs(hg[k] - he[k]) / np.abs(he[k])))
+                  for k in _STAGES)
+        exact = np.array_equal(pg, pe) and all(
+            np.array_equal(hg[k], he[k]) for k in he)
+        print(f"[frame stages] keypoints {label}: histories max rel diff "
+              f"graph vs eager {rel:.3e}; bit-equal {exact}; params max "
+              f"abs diff {np.abs(pg - pe).max():.3e}", flush=True)
+        if not rel < 1e-3:
+            raise AssertionError(f"frame stages keypoints {label}: graph "
+                                 "and eager histories disagree")
+        records[f"keypoints {label}"] = [runs[r][2] for r in runs]
+
+    T_seq = 100
+    gru = motion_gru.random_params(0, device=dev)
+    smoothers = (
+        (f"fit_independent T={len(body)}", body, lambda b, g: frame_fit.
+         fit_independent(b, device=dev, step_graphs=g)),
+        (f"fit_sequential T={T_seq}", body[:T_seq], lambda b, g: frame_fit.
+         fit_sequential(b, device=dev, step_graphs=g)),
+        (f"fit_sequential_motion T={T_seq}", body[:T_seq],
+         lambda b, g: frame_fit.fit_sequential_motion(
+             b, gru, device=dev, step_graphs=g)))
+    for label, b, fn in smoothers:
+        outs, recs = [], []
+        for route, graphs in (("graph", True), ("eager", False)):
+            out, rec = timed(label, route, lambda: fn(b, graphs),
+                             frame_fit.capture_seconds, len(b))
+            if out.shape != b.shape or not np.all(np.isfinite(out)):
+                raise AssertionError(f"frame stages {label} {route}: "
+                                     "non-finite or wrong shape")
+            outs.append(out)
+            recs.append(rec)
+        err = np.abs(outs[0] - outs[1])
+        frac = float(np.mean(err <= 1e-4))
+        print(f"[frame stages] {label}: max abs diff graph vs eager "
+              f"{err.max():.3e}, {frac:.4f} of entries within 1e-4; "
+              f"bit-equal {bool(np.array_equal(outs[0], outs[1]))}",
+              flush=True)
+        if not (frac >= 0.95 and err.max() <= 1e-2):
+            raise AssertionError(f"frame stages {label}: graph and eager "
+                                 "disagree")
+        records[label] = recs
+    for label, recs in records.items():
+        print(f"[frame stages] {label}: seconds by run " + ", ".join(
+            f"{r['route']} {r['s']:.3f}" for r in recs), flush=True)
+    print(f"[frame stages] phase 33 in {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
+    return records
 
 
 def main() -> int:
@@ -2379,7 +2510,7 @@ def main() -> int:
         _cli_on_card(Path(tmp))
 
     # 10-11. the keypoint fit and the smoother at full width
-    body_fit = _keypoint_phase(prob.model, prob.vp, dev, C, K)
+    body_fit, kp_fits = _keypoint_phase(prob.model, prob.vp, dev, C, K)
     _smoother_phase(body_fit, dev, C, K)
 
     # 12. the same small stages on the card and on the CPU
@@ -2441,7 +2572,11 @@ def main() -> int:
     # 32. the compiled phase: graph against eager
     torch.cuda.empty_cache()
     _compiled_phase(prob, dev, C, K, n_a, n_dct_b)
-    print(f"[done] phases 1-32 in {time.perf_counter() - t_start:.1f} s",
+
+    # 33. the compiled per-frame stages: graph against eager
+    torch.cuda.empty_cache()
+    _frame_stages_phase(prob.model, prob.vp, kp_fits, body_fit, dev, C, K)
+    print(f"[done] phases 1-33 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     k1_src = ("fpv4d_torch/csrc/cand_nn.cu", "fpv4d/ops/cand_pallas.py:160")

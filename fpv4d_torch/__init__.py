@@ -12,10 +12,13 @@ float32 product on the card runs in full float32, as the reference's
 tests run JAX at the highest matmul precision.
 
 Entry points (``solve.clip_solve.ClipSolver``,
-``utils.bench_problem.standard_problem``, the smoother's
-``solve.frame_fit`` functions and the CLIs) take ``device=`` and default
-to ``"cuda"``; the CPU is used only when the caller asks for it.
-``solve.keypoint_fit.fit_keypoints`` runs on its model's device.
+``utils.bench_problem.standard_problem``,
+``solve.keypoint_fit.fit_keypoints``, the smoother's ``solve.frame_fit``
+functions and the CLIs) take ``device=`` and default to ``"cuda"``; the
+CPU is used only when the caller asks for it. The optimization loops
+(the clip solve, the keypoint fit's Adam stages and the smoothers) take
+``step_graphs=``: on the card each step is captured once as a CUDA graph
+and replayed unless it is False (``solve/step_graph.py``).
 
 Hand-written kernels live in ``csrc/`` and are built with nvcc at
 first use into ``fpv4d_torch/_build/`` (see ``ops/cand_cuda.py``).

@@ -506,15 +506,25 @@ class Bench:
 
     def keypoints(self):
         """Keypoint-fit frames/s (Adam), its fleet of clips batched, and
-        each optimizer's frames/s, measured here (no compile step)."""
+        each optimizer's frames/s, measured here (no compile step). The
+        Adam stages take the default route (captured on the card, eager
+        on the CPU); the route and each Adam fit's capture seconds are
+        recorded beside the rates."""
         from fpv4d_torch.config import KeypointFitConfig
-        from fpv4d_torch.solve.keypoint_fit import fit_keypoints
+        from fpv4d_torch.solve import keypoint_fit, step_graph
         model, vp, T, small = self.prob.model, self.prob.vp, self.k.T, \
             self.k.small
+        self.extras["keypoint_step_graphs"] = step_graph.use_graphs(
+            self.dev, None)
+        captures = self.extras["keypoint_capture_s"] = {}
 
-        def timed(kp, cfg):
+        def timed(kp, cfg, label):
             dt, (params, hist), got = counted(
-                lambda: fit_keypoints(model, vp, kp, cfg), self.dev)
+                lambda: keypoint_fit.fit_keypoints(model, vp, kp, cfg,
+                                                   device=self.dev),
+                self.dev)
+            if cfg.optimizer == "adam":
+                captures[label] = dict(keypoint_fit.capture_seconds)
             if not (np.all(np.isfinite(params))
                     and all(np.all(np.isfinite(hist[k]))
                             for k in ("camera", "body", "all"))):
@@ -527,7 +537,7 @@ class Bench:
 
         kp, kcfg = keypoint_problem(model, vp, T,
                                     num_iter=10 if small else 120)
-        dt_fit, hist = timed(kp, kcfg)
+        dt_fit, hist = timed(kp, kcfg, "fit")
         self.extras["keypoint_fit_fps"] = T / dt_fit
         _log(f"keypoint fit: {T} frames x {3 * kcfg.num_iter} steps in "
              f"{dt_fit:.2f}s -> {T / dt_fit:.0f} frames/s")
@@ -535,7 +545,7 @@ class Bench:
         kp_b = np.broadcast_to(kp, (C_kp,) + kp.shape).copy()
         kp_b[..., :2] += self.rng.randn(*kp_b[..., :2].shape).astype(
             np.float32)
-        dt_b, _ = timed(kp_b, kcfg)
+        dt_b, _ = timed(kp_b, kcfg, "fleet")
         self.extras["keypoint_fleet"] = {
             "clips": C_kp, "frames_per_s_per_chip": C_kp * T / dt_b,
             "per_clip_vs_single": dt_b / (C_kp * dt_fit)}
@@ -545,7 +555,7 @@ class Bench:
         for name, iters in (("lbfgs", 15 if small else 60),
                             ("lbfgs_perframe", 10 if small else 40)):
             runs[name] = (iters, *timed(kp, KeypointFitConfig(
-                num_iter=iters, optimizer=name)))
+                num_iter=iters, optimizer=name), name))
         opts = {}
         for name, (iters, dt_o, hist) in runs.items():
             opts[name] = {"iters_per_stage": iters, "steady_s": dt_o,
@@ -776,6 +786,10 @@ class Bench:
                               ["ms"]),
                 "k2_ms": _sig(ex["pallas_check"]["cases"]["global"]["ms"]),
                 "keypoint_fit_fps": _sig(ex["keypoint_fit_fps"]),
+                "keypoint_step_graphs": ex["keypoint_step_graphs"],
+                "keypoint_capture_s": {
+                    k: _sig(sum(v.values()))
+                    for k, v in ex["keypoint_capture_s"].items()},
                 "keypoint_fleet_fps": _sig(
                     ex["keypoint_fleet"]["frames_per_s_per_chip"]),
                 "keypoint_optimizer_fps": {

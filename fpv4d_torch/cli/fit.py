@@ -83,7 +83,7 @@ def main(argv=None) -> int:
     params, hist = fit_keypoints(model, vp, kp, cfg,
                                  hand_left=hands.get("hand_left"),
                                  hand_right=hands.get("hand_right"),
-                                 face=face)
+                                 face=face, device=dev)
     for name in ("camera", "body", "all"):
         if name in hist:
             h = hist[name]

@@ -8,7 +8,9 @@ Conventions match the reference exactly:
 Singular configurations use the double-``where`` pattern: the
 denominator is made safe in the unselected branch too, so gradients
 stay finite at zero angle. Clamps are torch.maximum/minimum, whose
-gradient at a tie is JAX's (split evenly).
+gradient at a tie is JAX's (split evenly), against bounds made on the
+device (``full_like``), never uploaded from the host: VPoser's decode
+runs these codecs inside the keypoint fit's captured steps.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ def matrot_to_quat(R: torch.Tensor) -> torch.Tensor:
     tr = m00 + m11 + m22
 
     def cand(t, a, b, c, d):
-        s = torch.sqrt(torch.maximum(t, t.new_tensor(_EPS))) * 2.0
+        s = torch.sqrt(torch.maximum(t, torch.full_like(t, _EPS))) * 2.0
         return torch.stack([a / s, b / s, c / s, d / s], dim=-1), s
 
     q0, s0 = cand(1.0 + tr, (1.0 + tr), m21 - m12, m02 - m20, m10 - m01)
@@ -73,8 +75,9 @@ def quat_to_aa(q: torch.Tensor) -> torch.Tensor:
     maximum and a minimum, which split the gradient evenly where w is
     exactly +-1 (a rotation within ~5e-4 rad of the identity rounds
     there); torch.clamp would pass all of it."""
-    one = q.new_tensor(1.0)
-    w = torch.minimum(torch.maximum(q[..., 0], -one), one)
+    w = q[..., 0]
+    one = torch.ones_like(w)
+    w = torch.minimum(torch.maximum(w, -one), one)
     v = q[..., 1:]
     v2 = torch.sum(v * v, dim=-1)
     small = v2 < 1e-12

@@ -222,11 +222,7 @@ class ClipSolver:
         if nn_impl not in NN_IMPLS:
             raise ValueError(f"nn_impl={nn_impl!r}: one of {NN_IMPLS}")
         self.device = torch.device(device)
-        on_card = self.device.type == "cuda"
-        if step_graphs and not on_card:
-            raise ValueError(f"step_graphs=True needs a CUDA device, not "
-                             f"{self.device}")
-        self.step_graphs = on_card if step_graphs is None else step_graphs
+        self.step_graphs = step_graph.use_graphs(self.device, step_graphs)
         self.config = config
         self.nn_impl = nn_impl
         self.model = model.to(self.device)

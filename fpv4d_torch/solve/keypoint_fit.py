@@ -18,10 +18,20 @@ with transl = 0 and the camera offset in camera_translation, the
 convention of the reference's body_gen pkls.
 
 Three optimizers, as in the reference:
-  * 'adam': ONE Adam state over all eight variables, threaded through
-    the three stages. Every variable takes an Adam step every step: a
-    stage's masked variables get a zero gradient and keep moving on the
-    moments they gathered earlier, as optax's masked updates make them;
+  * 'adam': ONE Adam state (solve/adam.py, optax's arithmetic) over all
+    eight variables, threaded through the three stages as the
+    reference's one ``opt_state``. Every variable takes an Adam step
+    every step: a stage's masked variables enter the loss detached, get
+    a zero gradient and keep moving on the moments they gathered
+    earlier, as optax's masked updates make them. Each stage's step
+    runs through a phase program (solve/step_graph.py), the counterpart
+    of the reference's jitted ``run_stage`` scan: on the card it is
+    captured once per stage as a CUDA graph and replayed
+    (``step_graphs``), and everything it reads (keypoints, face
+    keypoints, each stage's joint weights, the model's tables) sits at
+    one address for the whole fit. The reference shares one program
+    between the stages through a traced mask; here each stage's mask is
+    the detach form, so each stage is a capture of its own (3 in all);
   * 'lbfgs': optax's L-BFGS with the zoom line search over the clip's
     whole objective (solve/lbfgs.py), a fresh state per stage;
   * 'lbfgs_perframe': the same direction with a bounded backtracking
@@ -48,7 +58,8 @@ import torch
 from fpv4d_torch.config import KeypointFitConfig
 from fpv4d_torch.models import vposer as VP
 from fpv4d_torch.models.smplx import SmplxModel
-from fpv4d_torch.solve import lbfgs
+from fpv4d_torch.solve import lbfgs, step_graph
+from fpv4d_torch.solve.adam import Adam
 
 # BODY_25 slot <- SMPL-X skeleton joint (-1 = no correspondence; ears,
 # heels and small toes have no skeleton joint and get weight 0).
@@ -98,6 +109,10 @@ LEAVES = ("global_orient", "camera_translation", "betas", "latent",
           "left_hand", "right_hand", "jaw", "expression")
 Vars = Dict[str, torch.Tensor]
 
+# host seconds of each Adam stage's graph capture in the last fit of
+# this process (empty on the eager route)
+capture_seconds: Dict[str, float] = {}
+
 
 def gmof(x: torch.Tensor, rho: float) -> torch.Tensor:
     """Geman-McClure robustifier rho^2 * d/(d + rho^2), d = x^2."""
@@ -114,10 +129,11 @@ def gmof_sq(d: torch.Tensor, rho: float) -> torch.Tensor:
 def project(points_cam: torch.Tensor, focal: float,
             center: torch.Tensor) -> torch.Tensor:
     """Perspective projection [..., 3] -> [..., 2] pixels, depth clamped
-    at 1e-4. torch.maximum splits the gradient evenly at an exact tie,
+    at 1e-4 (a bound made on the device: a captured step uploads
+    nothing). torch.maximum splits the gradient evenly at an exact tie,
     as JAX's maximum does."""
-    z = torch.maximum(points_cam[..., 2:3],
-                      points_cam.new_tensor(1e-4))
+    z = points_cam[..., 2:3]
+    z = torch.maximum(z, torch.full_like(z, 1e-4))
     return focal * points_cam[..., :2] / z + center
 
 
@@ -237,21 +253,24 @@ def _unpack(x: torch.Tensor, sizes: Dict[str, int], F: int) -> Vars:
     return dict(zip(LEAVES, parts))
 
 
-def _run_adam(obj, v: Vars, opt, kp, face_kp, joint_w, face_w, mask,
-              num_iter: int) -> torch.Tensor:
-    """num_iter steps of the shared Adam; masked variables enter the
-    loss detached, so their gradient stays the zero tensor it was reset
-    to. Returns the per-clip losses [num_iter, C]."""
-    hist = torch.empty((num_iter, kp.shape[0]), dtype=torch.float32,
-                       device=kp.device)
-    for i in range(num_iter):
-        opt.zero_grad(set_to_none=False)
+def _run_adam(obj, v: Vars, opt: Adam, kp, face_kp, joint_w, face_w,
+              mask, num_iter: int,
+              program: Optional[step_graph.PhaseProgram] = None,
+              key=("adam",)) -> torch.Tensor:
+    """num_iter steps of the shared Adam through `program` (eager
+    without one; one capture per `key`); masked variables enter the loss
+    detached, so their gradient stays the zero tensor it was reset to.
+    Returns the per-clip losses [num_iter, C] on the device."""
+    def step():
+        opt.zero_grad()
         vm = {k: x if mask[k] else x.detach() for k, x in v.items()}
         loss = obj(vm, kp, face_kp, joint_w, face_w)
         loss.sum().backward()
         opt.step()
-        hist[i] = loss.detach()
-    return hist
+        return loss.detach()
+
+    program = program or step_graph.eager(kp.device)
+    return program.run(key, step, num_iter)
 
 
 def _run_lbfgs(obj, v: Vars, kp, face_kp, joint_w, face_w, mask,
@@ -290,10 +309,13 @@ def fit_keypoints(model: SmplxModel, vposer_params: Dict[str, torch.Tensor],
                   config: KeypointFitConfig = KeypointFitConfig(),
                   hand_left: Optional[np.ndarray] = None,
                   hand_right: Optional[np.ndarray] = None,
-                  face: Optional[np.ndarray] = None, mesh=None
+                  face: Optional[np.ndarray] = None, mesh=None,
+                  device="cuda", step_graphs: Optional[bool] = None
                   ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
-    """Fit SMPL-X to OpenPose keypoints for a whole clip at once, on the
-    model's device.
+    """Fit SMPL-X to OpenPose keypoints for a whole clip at once on
+    `device` (the card unless the caller asks for the CPU), where the
+    model's tables go (in place, as ClipSolver moves them) and the
+    VPoser weights are copied.
 
     keypoints [T, 25, 3] (x, y, confidence) BODY_25 pixels, or
     [C, T, 25, 3] for C clips; hand_left/hand_right optional [*lead, 21,
@@ -311,9 +333,22 @@ def fit_keypoints(model: SmplxModel, vposer_params: Dict[str, torch.Tensor],
     R ranks has each rank fit C / R contiguous clips (the clips never
     interact), and the parameters and histories of all C are gathered
     over that axis to every rank; the ranks along its other axes fit the
-    same clips whole."""
+    same clips whole.
+
+    step_graphs: None captures each Adam stage's step as a CUDA graph on
+    a CUDA device and runs it eagerly on the CPU; False runs it eagerly
+    on either; True on the CPU raises. The L-BFGS stages run eagerly on
+    either route. The capture seconds of each stage land in the module's
+    ``capture_seconds``."""
     if config.optimizer not in ("adam", "lbfgs", "lbfgs_perframe"):
         raise ValueError(f"optimizer={config.optimizer!r}")
+    dev = torch.device(device)
+    graphs = step_graph.use_graphs(dev, step_graphs)
+    model = model.to(dev)
+    vposer_params = {k: (v.to(device=dev, dtype=torch.float32)
+                         if isinstance(v, torch.Tensor) else torch.tensor(
+                             np.asarray(v, np.float32), device=dev))
+                     for k, v in vposer_params.items()}
     axis = next(iter(mesh.axes)) if mesh is not None else None
     if np.ndim(keypoints) == 4 and axis and mesh.axes[axis] > 1:
         from fpv4d_torch.parallel import sharding as SH
@@ -323,15 +358,14 @@ def fit_keypoints(model: SmplxModel, vposer_params: Dict[str, torch.Tensor],
             return None if a is None else np.asarray(a)[lo:hi]
 
         def gather(a):
-            return SH.all_gather_axis(torch.as_tensor(
-                a, device=model.v_template.device), mesh,
-                axis).cpu().numpy()
+            return SH.all_gather_axis(torch.as_tensor(a, device=dev), mesh,
+                                      axis).cpu().numpy()
 
         params, hist = fit_keypoints(model, vposer_params, part(keypoints),
                                      config, part(hand_left),
-                                     part(hand_right), part(face))
+                                     part(hand_right), part(face),
+                                     device=dev, step_graphs=graphs)
         return gather(params), {k: gather(v) for k, v in hist.items()}
-    dev = model.v_template.device
     kp_np = np.asarray(keypoints, np.float32)
     batched = kp_np.ndim == 4
     lead = tuple(kp_np.shape[:-2])           # (T,) or (C, T)
@@ -399,9 +433,7 @@ def fit_keypoints(model: SmplxModel, vposer_params: Dict[str, torch.Tensor],
     opt = None
     if config.optimizer == "adam":
         v = {k: x.clone().requires_grad_(True) for k, x in v.items()}
-        for x in v.values():
-            x.grad = torch.zeros_like(x)
-        opt = torch.optim.Adam([v[k] for k in LEAVES], lr=config.lr)
+        opt = Adam([v[k] for k in LEAVES], lr=config.lr)
 
     use_face = lmk is not None
     schedule = [
@@ -411,15 +443,23 @@ def fit_keypoints(model: SmplxModel, vposer_params: Dict[str, torch.Tensor],
          _stage_mask(camera=True, body=True, hands=True, face=use_face)),
     ][: config.stages]
     hist = {}
-    for name, joint_w, face_w, mask in schedule:
-        if opt is not None:
-            h = _run_adam(obj, v, opt, kp, face_kp, joint_w, face_w, mask,
-                          config.num_iter)
-        else:
-            v, h = _run_lbfgs(obj, v, kp, face_kp, joint_w, face_w, mask,
-                              config, config.optimizer == "lbfgs_perframe")
-        h = h.T.cpu().numpy()                              # [C, iters]
-        hist[name] = h if batched else h[0]
+    program = step_graph.PhaseProgram(dev, graphs and opt is not None)
+    try:
+        for name, joint_w, face_w, mask in schedule:
+            if opt is not None:
+                h = _run_adam(obj, v, opt, kp, face_kp, joint_w, face_w,
+                              mask, config.num_iter, program, (name,))
+            else:
+                v, h = _run_lbfgs(obj, v, kp, face_kp, joint_w, face_w,
+                                  mask, config,
+                                  config.optimizer == "lbfgs_perframe")
+            h = h.T.cpu().numpy()                          # [C, iters]
+            hist[name] = h if batched else h[0]
+    finally:
+        capture_seconds.clear()
+        capture_seconds.update({k[0]: s for k, s in
+                                program.capture_seconds.items()})
+        program.close()
 
     with torch.no_grad():
         out = torch.cat([torch.zeros_like(v["global_orient"]),

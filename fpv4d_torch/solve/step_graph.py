@@ -6,12 +6,18 @@ The counterpart of the JAX package's one jitted ``lax.scan`` per phase:
 ``_make_dct_only_phase`` (:716-762), ``phase_step_body`` (:764-841) and
 ``_run_skate_phase`` (:843-877); for the fleet, ``build_sharded_step``
 and ``phase_scan`` (fpv4d/parallel/sharding.py:187-330) and
-``MultiClipSolver._get_step`` (fpv4d/parallel/multi_clip.py:69).
+``MultiClipSolver._get_step`` (fpv4d/parallel/multi_clip.py:69); for the
+stages ahead of the clip solve, the keypoint fit's ``run_stage``
+(fpv4d/solve/keypoint_fit.py:313-327) and the smoothers' scans over
+frames (fpv4d/solve/frame_fit.py:57-176).
 
 A step (solve/clip_solve.py ``ClipSolver._run_steps``) zeroes the
 gradients in place, computes the masked loss, runs the backward, takes
-the Adam step (solve/adam.py) and returns the loss. ``PhaseProgram.run``
-runs a phase's steps:
+the Adam step (solve/adam.py) and returns the loss. A step may also
+hold several optimizer steps and its own bookkeeping: a smoother's
+frame body (solve/frame_fit.py) runs a frame's Adam steps, reading its
+frame index from a device counter that it advances, so each replay
+fits the next frame. ``PhaseProgram.run`` runs a phase's steps:
 
 * on the graph route, the first WARMUP_STEPS steps of a key (over its
   runs, should a chunk be shorter) run eagerly on a side stream (real
@@ -189,3 +195,15 @@ class PhaseProgram:
 def eager(device) -> PhaseProgram:
     """A program that runs every step eagerly."""
     return PhaseProgram(device, graphs=False)
+
+
+def use_graphs(device, step_graphs: Optional[bool]) -> bool:
+    """The route an entry point's `step_graphs` argument takes on
+    `device`: None captures on a CUDA device and runs eagerly elsewhere,
+    False runs eagerly on either, True captures and raises on a device
+    that cannot."""
+    on_card = torch.device(device).type == "cuda"
+    if step_graphs and not on_card:
+        raise ValueError(f"step_graphs=True needs a CUDA device, not "
+                         f"{device}")
+    return on_card if step_graphs is None else bool(step_graphs)

@@ -110,7 +110,7 @@ def run(frames: int = 30, num_verts: int = 512, noise_px: float = 2.0,
         kcfg = KeypointFitConfig(
             num_iter=iters, optimizer=opt_name,
             allow_slow_perframe=(opt_name == "lbfgs_perframe"))
-        params, _ = fit_keypoints(model, vp, kp, kcfg)
+        params, _ = fit_keypoints(model, vp, kp, kcfg, device=dev)
         j_fit_cam = model_joints(params)
         sel = np.unique(ids[valid])
         mpjpe_3d = float(np.linalg.norm(

@@ -51,7 +51,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _COMPACT = ("device", "power_limit", "modes_steady_s", "solve_mfu",
             "launches_per_solve", "phase_ms_per_step", "k1_ms", "k2_ms",
-            "keypoint_fit_fps", "keypoint_fleet_fps",
+            "keypoint_fit_fps", "keypoint_step_graphs",
+            "keypoint_capture_s", "keypoint_fleet_fps",
             "keypoint_optimizer_fps", "fleet_clips_per_hour_per_chip",
             "fleet_per_clip_vs_single", "fleet_modes_clips_per_hour",
             "fleet_max_clips_per_chip", "fleet_implied_gb_per_clip",
@@ -99,6 +100,9 @@ def test_small_cpu_run_prints_one_compact_line(tmp_path):
     assert ex["pallas_ok"] is None and ex["cand_kernel_ok"] is None
     # counts are printed off the card: the plain versions launch nothing
     assert ex["launches_per_solve"] == {"local": [0, 0]}
+    # the CPU runs every Adam stage eagerly: no capture
+    assert ex["keypoint_step_graphs"] is False
+    assert ex["keypoint_capture_s"] == {"fit": 0, "fleet": 0}
     assert ex["fleet_max_clips_per_chip"] is None
     assert ex["fleet_implied_gb_per_clip"] is None
     full = json.loads((tmp_path / "bench_full.json").read_text())

@@ -7,12 +7,14 @@ Tolerances: the GRU forward rtol 1e-5 / atol 1e-6 (f32 matmul order);
 the stand-in weights bit-identical. The smoothers: every frame's first
 Adam step starts at an exact zero of the L1 reconstruction term, where
 the port's |x| has JAX's derivative (+1), so the first steps agree to
-f32 rounding (atol 5e-6 after one step per frame; the sequential
-variants' later frames step on moments carried over, measured 1.0e-6);
-after 30 steps (sequential: 240 on one Adam state) the
-results agree to atol 1e-4, the L1 terms' sign changes near zero
-residuals being where the two roundings can part (each such step is at
-most lr = 0.1; none is met here)."""
+f32 rounding (atol 5e-6 after one step per frame; measured 6.0e-8 on
+the optax-order Adam of solve/adam.py, 1.0e-6 on torch.optim.Adam
+before it); after 30 steps (sequential: 240 on one Adam state) the
+results agree to atol 1e-4 (measured 1.2e-7 independent, 2.1e-7
+sequential, 2.7e-7 motion; 3.3e-7, 3.4e-6 and 3.2e-6 on torch.optim's
+Adam), the L1 terms' sign changes near zero residuals being where the
+two roundings can part (each such step is at most lr = 0.1; none is met
+here)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -196,9 +198,11 @@ def test_first_step_meets_abs_at_zero(clip, fn):
 
 
 def test_motion_prior_makes_no_gru_step_at_frame_0(clip, monkeypatch):
-    """The GRU runs once per frame from frame 1 on, and its first step
-    starts from zero hidden states; frame 0 is fitted as the independent
-    fit fits it."""
+    """The frame body runs the GRU for every frame, as the reference's
+    scan body does, and frame 0's hidden-state update is masked (w[0] =
+    0): frame 1's step starts from zero hidden states as frame 0's does,
+    frame 2's from the states frame 1 made; frame 0 is fitted as the
+    independent fit fits it."""
     calls = []
     real = TGRU.forward_seq
 
@@ -211,8 +215,8 @@ def test_motion_prior_makes_no_gru_step_at_frame_0(clip, monkeypatch):
     cfg = TConfig(num_iter=5)
     got = TFF.fit_sequential_motion(clip[:4], TGRU.random_params(2), cfg,
                                     device="cpu")
-    assert len(calls) == 3
-    assert all(torch.count_nonzero(h) == 0 for h in calls[0])
-    assert all(torch.count_nonzero(h) > 0 for h in calls[1])
+    assert len(calls) == 4
+    assert all(torch.count_nonzero(h) == 0 for h in calls[0] + calls[1])
+    assert all(torch.count_nonzero(h) > 0 for h in calls[2])
     ind = TFF.fit_independent(clip[:1], cfg, device="cpu")
     np.testing.assert_allclose(got[0], ind[0], atol=1e-6)

@@ -234,7 +234,8 @@ def test_clips_and_frames_mesh_on_four_ranks(tmp_path):
     vp = W.vposer.random_params(0)
     kp, _ = W.keypoint_problem(model, vp, 8, num_iter=5)
     params, kp_hist = fit_keypoints(model, vp, np.stack(
-        [kp, kp + np.float32(1.5)]), KeypointFitConfig(num_iter=5))
+        [kp, kp + np.float32(1.5)]), KeypointFitConfig(num_iter=5),
+        device="cpu")
     for g in got:
         for k, v in hist.items():
             np.testing.assert_allclose(g[f"hist_{k}"], v, rtol=1e-3

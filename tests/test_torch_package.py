@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 _BLOCKED = ("jax", "jaxlib", "optax", "orbax", "ml_dtypes", "fpv4d")
 
 _PROBE = """
@@ -46,7 +48,8 @@ _EXPECTED = (
     "fpv4d_torch.utils.monitor", "fpv4d_torch.utils.observability",
     "fpv4d_torch.utils.accuracy_report", "fpv4d_torch.io.native",
     "fpv4d_torch.bench", "fpv4d_torch.utils.cost",
-    "fpv4d_torch.solve.adam", "fpv4d_torch.solve.step_graph")
+    "fpv4d_torch.solve.adam", "fpv4d_torch.solve.step_graph",
+    "fpv4d_torch.utils.profile_stages")
 
 _HOST_LIBS = ("cv2", "PIL", "joblib")
 
@@ -96,25 +99,29 @@ def test_bench_reads_no_tpu_record():
         assert not [r for r in _TPU_RECORDS if r in src], rel
 
 
-# the clip solve and the fleet step with solve/adam.py (capturable, on
-# the device); torch.optim stays in the keypoint fit and the smoother
-_NO_TORCH_OPTIM = ("solve/clip_solve.py", "solve/adam.py",
-                   "solve/step_graph.py", "parallel/multi_clip.py",
-                   "parallel/sharding.py")
+# every optimization loop of the port (the clip solve, the fleet step,
+# the keypoint fit's Adam stages, the smoothers) steps with solve/adam.py
+# (capturable, on the device), and no module of the package reaches
+# torch.optim
+_PKG = Path(__file__).resolve().parents[1] / "fpv4d_torch"
+_MODULES = sorted(str(p.relative_to(_PKG)) for p in _PKG.rglob("*.py"))
+_OPTIMIZING = ("solve/clip_solve.py", "solve/adam.py", "solve/step_graph.py",
+               "solve/keypoint_fit.py", "solve/frame_fit.py",
+               "parallel/multi_clip.py", "parallel/sharding.py")
 
 
-def test_the_clip_solve_uses_no_torch_optim():
+@pytest.mark.parametrize("rel", _MODULES)
+def test_no_port_module_uses_torch_optim(rel):
     import ast
-    root = Path(__file__).resolve().parents[1] / "fpv4d_torch"
-    for rel in _NO_TORCH_OPTIM:
-        tree = ast.parse((root / rel).read_text())
-        uses = [n.lineno for n in ast.walk(tree)
-                if (isinstance(n, ast.Attribute) and n.attr == "optim"
-                    and isinstance(n.value, ast.Name)
-                    and n.value.id == "torch")
-                or (isinstance(n, (ast.Import, ast.ImportFrom))
-                    and any("torch.optim" in (a.name or "")
-                            for a in n.names)
-                    or isinstance(n, ast.ImportFrom)
-                    and (n.module or "").startswith("torch.optim"))]
-        assert not uses, (rel, uses)
+    assert set(_OPTIMIZING) <= set(_MODULES)
+    tree = ast.parse((_PKG / rel).read_text())
+    uses = [n.lineno for n in ast.walk(tree)
+            if (isinstance(n, ast.Attribute) and n.attr == "optim"
+                and isinstance(n.value, ast.Name)
+                and n.value.id == "torch")
+            or (isinstance(n, (ast.Import, ast.ImportFrom))
+                and any("torch.optim" in (a.name or "")
+                        for a in n.names)
+                or isinstance(n, ast.ImportFrom)
+                and (n.module or "").startswith("torch.optim"))]
+    assert not uses, (rel, uses)

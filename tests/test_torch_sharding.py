@@ -134,7 +134,8 @@ def test_two_gloo_ranks_reproduce_one_process(tmp_path):
     np.testing.assert_allclose(got["scale"], state_b.scale.numpy(),
                                atol=1e-5)
     params, kp_hist = fit_keypoints(model, vp, kp_b,
-                                    KeypointFitConfig(num_iter=5))
+                                    KeypointFitConfig(num_iter=5),
+                                    device="cpu")
     np.testing.assert_allclose(got["kp_params"], params, atol=2e-5,
                                rtol=1e-4)
     np.testing.assert_allclose(got["kp_all"], kp_hist["all"], rtol=1e-4,

@@ -55,7 +55,7 @@ def run(rank: int, init_file: str, out_file: str):
     state_b, hist = mc.fit(bodies, cams, scenes, mode="local")
     params, kp_hist = fit_keypoints(model, vp, kp_b,
                                     KeypointFitConfig(num_iter=5),
-                                    mesh=mesh)
+                                    mesh=mesh, device="cpu")
     if rank == 0:
         np.savez(out_file, body_6d=state_b.body_6d.numpy(),
                  scale=state_b.scale.numpy(), kp_params=params,

@@ -145,7 +145,7 @@ def run_clips_frames(rank: int, init_file: str, out_dir: str):
     kp, _ = keypoint_problem(model, vp, 8, num_iter=5)
     params, kp_hist = fit_keypoints(model, vp, np.stack(
         [kp, kp + np.float32(1.5)]), KeypointFitConfig(num_iter=5),
-        mesh=mesh)
+        mesh=mesh, device="cpu")
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
              body_6d=state_b.body_6d.numpy(), scale=state_b.scale.numpy(),
              camera_ext=state_b.camera_ext.numpy(), kp_params=params,
