@@ -51,7 +51,8 @@ Phases, each fatal on failure:
                 against the ground truth; then one batched Adam fit of
                 8 clips x 900 frames, and one fit at T=60 with hand and
                 face keypoints (the landmark path); neither kernel runs;
-                the Adam stages on the graph route (each captured once;
+                every stage on the graph route (each Adam stage's step
+                and each L-BFGS stage's iteration pieces captured once;
                 capture seconds printed);
  11. smoother   fit_independent at T=900, fit_sequential and
                 fit_sequential_motion at T=300 (15,000 sequential Adam
@@ -167,7 +168,8 @@ Phases, each fatal on failure:
                 Chrome trace names K1's cand_nn_kernel), StageTimer with
                 sync_on, checked raising on a NaN output on the card;
  30. accuracy   utils/accuracy_report.run at 300 frames, V = 10,475, Adam
-                and L-BFGS: tests/test_accuracy.py's thresholds (keypoint
+                and L-BFGS (both on the graph route):
+                tests/test_accuracy.py's thresholds (keypoint
                 MPJPE < 60 mm, reprojection < 4x the pixel noise, MPJPE
                 after < before, jitter < 0.3x the noisy init's), K1 once
                 per local_a step of its clip solve, K2 never;
@@ -190,7 +192,11 @@ Phases, each fatal on failure:
                 counted as replays x the launches of one captured step);
                 each graph run's histories held to the eager run's by
                 _hold_histories ("graph vs eager"), whether they are
-                bit-equal, and each final leaf's largest difference;
+                bit-equal, and each final leaf's largest difference; the
+                contact refresh, SDF linearization and planted-foot
+                detection captured with the steps; after each fit on lazy
+                tables, ms per refresh at its final state on both routes,
+                the captured refresh's tables bit-equal to eager;
  33. frame      the compiled per-frame stages: phase 10's three Adam
      stages     keypoint fits (T=900, 8 x 900, hands and face at T=60)
                 and the smoothers (fit_independent at T=900,
@@ -201,12 +207,21 @@ Phases, each fatal on failure:
                 eager are bit-equal; keypoint histories held within
                 phase 12's 1e-3 relative (each stage finite and
                 falling), smoother results by phase 12's rule (95% of
-                entries within 1e-4, all within 1e-2).
+                entries within 1e-4, all within 1e-2);
+ 34. L-BFGS     the compiled L-BFGS stages: the joint L-BFGS (60
+                iterations per stage) and the per-frame L-BFGS (40) at
+                T=900 on phase 10's keypoints, and the joint L-BFGS of 2 x
+                900 batched, each graph first, then eager: seconds,
+                frames/s, capture seconds per stage, line-search rounds
+                per iteration (mean and max), peak memory, K1 0 and K2 0;
+                graph and eager bit-equal (parameters and histories), or
+                the phase fails.
 Every solve and fleet fit (phases 5-7, 13-19, 26, 30, 31) and every
-Adam keypoint fit and smoother (10-13, 30, 31) takes the default route,
-graphs on the card; the frames axis (21-22) and the L-BFGS keypoint
-stages run eagerly (collectives inside the step; host reads ending each
-line search). Every count is set to 0 just
+keypoint fit and smoother (10-13, 30, 31) takes the default route,
+graphs on the card; the frames axis (21-22) runs eagerly (collectives
+inside the step), and the L-BFGS stages' eager twins of phase 34 run
+as today's eager route (a host read ending each line-search round).
+Every count is set to 0 just
 before its path runs and read just after (phase 31's by the bench
 itself, around each solve).
 The second-to-last lines are a JSON object of kernel results and the
@@ -2115,11 +2130,14 @@ def _bench_phase(extra_args=(), T: int = 300):
     print(f"[bench] phase 31 in {secs:.1f} s, by block (s): "
           f"{ {k: round(v, 1) for k, v in full['block_s'].items()} }; "
           f"result line ({len(line)} characters): {line}", flush=True)
-    shares = [v for v in ex["solve_mfu"].values()]
-    for p in full["phases"].values():
-        shares += [p["mfu"], p["bytes_frac"], p["busy_frac"]]
-        shares += [p["lazy"][k] for k in ("mfu", "bytes_frac")
-                   if "lazy" in p]
+    shares = {f"solve_mfu {m}": v for m, v in ex["solve_mfu"].items()}
+    for name, p in full["phases"].items():
+        shares.update({f"{name} {k}": p[k]
+                       for k in ("mfu", "bytes_frac", "busy_frac")})
+        if "lazy" in p:
+            shares.update({f"{name} lazy {k}": p["lazy"][k]
+                           for k in ("mfu", "bytes_frac")})
+    print(f"[bench] shares: {json.dumps(shares)}", flush=True)
     checks = {
         "metric": res["metric"] == f"clip_joint_opt_{T}f_local_mode_wallclock",
         "correct": res["correct"] is True and res["unit"] == "s",
@@ -2136,14 +2154,42 @@ def _bench_phase(extra_args=(), T: int = 300):
             ex["keypoint_step_graphs"] is True
             and all(v > 0 for v in ex["keypoint_capture_s"].values())),
         "shares in [0, 1]": all(v is not None and 0 <= v <= 1
-                                for v in shares),
+                                for v in shares.values()),
         "records untouched": all(
             ((ROOT / n).read_bytes() if (ROOT / n).exists() else None) == b
             for n, b in records.items())}
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"bench: failed {failed}")
+        outside = {k: v for k, v in shares.items()
+                   if v is None or not 0 <= v <= 1}
+        raise AssertionError(f"bench: failed {failed}; shares outside "
+                             f"[0, 1]: {outside}")
     return secs, res
+
+
+def _refresh_ms(solver, state, phase, graphs, reps=20):
+    """ms per contact refresh of `phase` at `state` through a phase
+    program on the route `graphs` (host clock over `reps` calls after
+    the first, which captures on the graph route), and the tables of the
+    last call."""
+    from fpv4d_torch.solve import step_graph
+    from fpv4d_torch.solve.clip_solve import refresh_contact
+    prog = step_graph.PhaseProgram(solver.device, graphs)
+
+    def one():
+        return refresh_contact(prog, (phase, True, False), lambda out:
+                               solver._refresh_cands(state, out))[0]
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fc = one()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    tables = (fc.cand.clone(), fc.valid.clone())
+    prog.close()
+    return ms, tables
 
 
 def _compiled_phase(prob, dev, C, K, n_a, n_dct_b):
@@ -2151,10 +2197,13 @@ def _compiled_phase(prob, dev, C, K, n_a, n_dct_b):
     turns, eager (step_graphs=False), graph, graph, eager; then
     global/brute and dct/grid once on each route (graph first). Each run
     with both counts at 0 and the peak memory reset: per phase the wall
-    ms per step, the fit's seconds, the capture seconds, the peak memory
-    and the launches; each graph run's histories held to the eager
-    run's by _hold_histories, and the largest difference of each final
-    leaf printed. Returns the per-run records."""
+    ms per step, the fit's seconds, the capture seconds (the captured
+    refresh and detection among them), the peak memory and the
+    launches; each graph run's histories held to the eager run's by
+    _hold_histories, and the largest difference of each final leaf
+    printed. After each fit on lazy tables, the ms per refresh at its
+    final state on both routes, the captured refresh's tables held
+    bit-equal to the eager one's. Returns the per-run records."""
     from fpv4d_torch.utils.bench_problem import standard_problem
 
     def run(pr, mode, graphs, expect, label):
@@ -2187,9 +2236,26 @@ def _compiled_phase(prob, dev, C, K, n_a, n_dct_b):
             if not (np.all(np.isfinite(v)) and v[-1] < v[0]):
                 raise AssertionError(f"compiled {label} {route} {k}: "
                                      "losses not finite and falling")
+        contact = {"local": "local_a", "global": "global_a",
+                   "dct": "dct_b"}[mode]
+        refresh = None
+        if solver._use_lazy_contact(contact):
+            refresh = {r: _refresh_ms(solver, final, contact, g)
+                       for r, g in (("graph", True), ("eager", False))}
+            same = all(torch.equal(a, b) for a, b in zip(
+                refresh["graph"][1], refresh["eager"][1]))
+            print(f"[compiled] {label} {route}: ms per {contact} refresh "
+                  f"at the fit's final state, graph "
+                  f"{refresh['graph'][0]:.4f}, eager "
+                  f"{refresh['eager'][0]:.4f}; tables bit-equal {same}",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"compiled {label}: the captured "
+                                     "refresh's tables differ from eager")
+            refresh = {r: v[0] for r, v in refresh.items()}
         return {"route": route, "fit_s": secs, "ms_per_step": ms,
                 "capture_s": cap, "peak_gib": peak, "hist": hist,
-                "final": final}
+                "final": final, "refresh_ms": refresh}
 
     def hold(g, e, label):
         _hold_histories(g["hist"], e["hist"], label, what="graph vs eager")
@@ -2326,6 +2392,74 @@ def _frame_stages_phase(model, vp, kp_fits, body, dev, C, K):
             f"{r['route']} {r['s']:.3f}" for r in recs), flush=True)
     print(f"[frame stages] phase 33 in {time.perf_counter() - t_phase:.1f} "
           f"s", flush=True)
+    return records
+
+
+def _lbfgs_phase(model, vp, kp_fits, dev, C, K):
+    """Phase 34: the compiled L-BFGS stages. The joint L-BFGS (60
+    iterations per stage) and the per-frame L-BFGS (40) at T = 900 on
+    phase 10's keypoints, and the joint L-BFGS of 2 x 900 batched
+    (phase 10's first two clips), each graph first, then eager
+    (step_graphs=False). Per run, with both counts at 0 and the peak
+    memory reset: seconds, frames/s, capture seconds per stage (graph
+    route only), line-search rounds per iteration (mean and max), peak
+    memory, K1 0 and K2 0 (_run_keypoints); per pair, whether graph and
+    eager are bit-equal (parameters and histories), which they must be,
+    and ran the same rounds. Returns the per-run records."""
+    from fpv4d_torch.config import KeypointFitConfig
+    from fpv4d_torch.solve import keypoint_fit
+    t_phase = time.perf_counter()
+    print(f"[lbfgs] torch {torch.__version__}: conditional graph nodes "
+          f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}; "
+          "a line search's end is a one-element device flag read between "
+          "the replays of its round", flush=True)
+    kp = kp_fits["adam T=900"][0]
+    kp2 = kp_fits["batched 8 x 900"][0][:2]
+    fits = {"joint T=900": (kp, KeypointFitConfig(num_iter=60,
+                                                  optimizer="lbfgs")),
+            "per-frame T=900": (kp, KeypointFitConfig(
+                num_iter=40, optimizer="lbfgs_perframe")),
+            "joint batched 2 x 900": (kp2, KeypointFitConfig(
+                num_iter=60, optimizer="lbfgs"))}
+    records = {}
+    for label, (kp_, cfg) in fits.items():
+        runs = {}
+        for route, graphs in (("graph", True), ("eager", False)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params, hist, secs = _run_keypoints(
+                f"lbfgs {label} {route}", model, vp, kp_, cfg, C, K,
+                step_graphs=graphs)
+            cap = {k: round(v, 4)
+                   for k, v in keypoint_fit.capture_seconds.items()}
+            rounds = {k: list(v) for k, v in
+                      keypoint_fit.lbfgs_rounds.items()}
+            flat = [n for v in rounds.values() for n in v]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"[lbfgs] {label} {route}: {secs:.3f} s; line-search "
+                  f"rounds per iteration mean {np.mean(flat):.3f}, max "
+                  f"{max(flat)}; peak {peak:.3f} GiB", flush=True)
+            if (route == "graph") != bool(cap):
+                raise AssertionError(f"lbfgs {label} {route}: captures "
+                                     f"{cap}")
+            runs[route] = (params, hist, rounds, {
+                "route": route, "s": secs, "capture_s": cap,
+                "rounds_mean": float(np.mean(flat)),
+                "rounds_max": int(max(flat)), "peak_gib": peak})
+        (pg, hg, rg, _), (pe, he, re_, _) = runs["graph"], runs["eager"]
+        exact = np.array_equal(pg, pe) and all(
+            np.array_equal(hg[k], he[k]) for k in he)
+        print(f"[lbfgs] {label}: graph and eager bit-equal {exact}; params "
+              f"max abs diff {np.abs(pg - pe).max():.3e}; the same rounds "
+              f"every iteration {rg == re_}", flush=True)
+        if not exact:
+            raise AssertionError(f"lbfgs {label}: graph and eager differ")
+        records[label] = [runs[r][3] for r in runs]
+    for label, recs in records.items():
+        print(f"[lbfgs] {label}: seconds by run " + ", ".join(
+            f"{r['route']} {r['s']:.3f}" for r in recs), flush=True)
+    print(f"[lbfgs] phase 34 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return records
 
 
@@ -2576,7 +2710,11 @@ def main() -> int:
     # 33. the compiled per-frame stages: graph against eager
     torch.cuda.empty_cache()
     _frame_stages_phase(prob.model, prob.vp, kp_fits, body_fit, dev, C, K)
-    print(f"[done] phases 1-33 in {time.perf_counter() - t_start:.1f} s",
+
+    # 34. the compiled L-BFGS stages: graph against eager
+    torch.cuda.empty_cache()
+    _lbfgs_phase(prob.model, prob.vp, kp_fits, dev, C, K)
+    print(f"[done] phases 1-34 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     k1_src = ("fpv4d_torch/csrc/cand_nn.cu", "fpv4d/ops/cand_pallas.py:160")

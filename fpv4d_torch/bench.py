@@ -260,9 +260,14 @@ def profile_production_step(solver: ClipSolver, state, opt, target,
     """A production step's busy share, launches and top kernel, from
     profiles of PROFILE_STEPS steps (on fixed tables where the phase
     reads lazy ones; graph replays on the graph route) and, for a lazy
-    phase, of one table refresh, amortized over the refresh interval as
-    production runs it. Launches are the kernels the profiler saw run
-    per step (None where it saw none of a replay's)."""
+    phase, of one table refresh through the program (a replay of its
+    capture on the graph route), amortized over the refresh interval as
+    production runs it. The busy share is the profiled windows' time
+    with some kernel or copy running over their wall time (the
+    refresh's window amortized into both). Launches are the kernels
+    the profiler saw run per step (None where it saw none of a
+    replay's)."""
+    from fpv4d_torch.solve.clip_solve import refresh_contact
     from fpv4d_torch.utils.profile_local import measure
     dev = solver.device
     t0 = time.perf_counter()
@@ -271,16 +276,19 @@ def profile_production_step(solver: ClipSolver, state, opt, target,
         rec = measure(lambda n: solver._run_phase(
             state, opt, target, weights, n, phase, cands, program=program),
             PROFILE_STEPS, dev, top=1)
-        ref = measure(lambda n: [solver._refresh_cands(state)
-                                 for _ in range(n)], 1, dev, top=1)
+        key = (phase, True, solver.sdf is not None)
+        ref = measure(lambda n: [refresh_contact(
+            program, key, lambda out: solver._refresh_cands(state, out))
+            for _ in range(n)], 1, dev, top=1)
         every = solver.config.contact_refresh_steps
-        for k in ("wall_ms", "device_ms", "launches"):
+        for k in ("wall_ms", "device_ms", "busy_ms", "window_ms",
+                  "launches"):
             if rec[k] is not None:
                 rec[k] += ref[k] / every
     else:
         rec = measure(run, PROFILE_STEPS, dev, top=1)
     return {"busy_frac": (None if rec["device_ms"] is None
-                          else rec["device_ms"] / rec["wall_ms"]),
+                          else rec["busy_ms"] / rec["window_ms"]),
             "launches_per_step": rec["launches"],
             "top_kernel": rec["top"][0] if rec["top"] else None,
             "profile_s": time.perf_counter() - t0}
@@ -508,8 +516,8 @@ class Bench:
         """Keypoint-fit frames/s (Adam), its fleet of clips batched, and
         each optimizer's frames/s, measured here (no compile step). The
         Adam stages take the default route (captured on the card, eager
-        on the CPU); the route and each Adam fit's capture seconds are
-        recorded beside the rates."""
+        on the CPU), as do the L-BFGS stages; the route and each fit's
+        capture seconds are recorded beside the rates."""
         from fpv4d_torch.config import KeypointFitConfig
         from fpv4d_torch.solve import keypoint_fit, step_graph
         model, vp, T, small = self.prob.model, self.prob.vp, self.k.T, \
@@ -523,8 +531,7 @@ class Bench:
                 lambda: keypoint_fit.fit_keypoints(model, vp, kp, cfg,
                                                    device=self.dev),
                 self.dev)
-            if cfg.optimizer == "adam":
-                captures[label] = dict(keypoint_fit.capture_seconds)
+            captures[label] = dict(keypoint_fit.capture_seconds)
             if not (np.all(np.isfinite(params))
                     and all(np.all(np.isfinite(hist[k]))
                             for k in ("camera", "body", "all"))):
@@ -559,7 +566,9 @@ class Bench:
         opts = {}
         for name, (iters, dt_o, hist) in runs.items():
             opts[name] = {"iters_per_stage": iters, "steady_s": dt_o,
-                          "frames_per_s": T / dt_o,
+                          "frames_per_s": T / dt_o, "capture_s": sum(
+                              captures["fit" if name == "adam"
+                                       else name].values()),
                           "final_all_loss": float(np.asarray(
                               hist["all"])[-1])}
             _log(f"keypoint {name}: {dt_o:.2f}s ({T / dt_o:.0f} frames/s)")

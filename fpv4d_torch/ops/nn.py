@@ -244,20 +244,23 @@ def grid_min_dist_folded(grid_b: VoxelGrid, q: torch.Tensor,
 
 
 def frame_candidates(grid: VoxelGrid, q: torch.Tensor,
-                     budget: int = 64) -> FrameCands:
+                     budget: int = 64,
+                     out: Optional[FrameCands] = None) -> FrameCands:
     """q [T, N, 3] -> FrameCands with P = budget * K points per frame:
     the tables of each frame's sorted-ascending unique cells, truncated
-    to `budget` (unused slots carry cell 2**30 and are invalid).
+    to `budget` (unused slots carry cell 2**30 and are invalid); written
+    into `out`'s tensors when given.
 
     torch has no ``unique(size=)``: each row is sorted, its first
     occurrences are masked, and their ranks scatter the unique ids into
     a [T, budget] table (ranks >= budget go to a dropped column)."""
     return _frame_tables(_cell_ids(grid, q), grid.cand_pts, grid.cand_idx,
-                         grid.cand_pts.shape[0], budget)
+                         grid.cand_pts.shape[0], budget, out=out)
 
 
 def frame_candidates_folded(grid_b: VoxelGrid, q_flat: torch.Tensor,
-                            C: int, budget: int = 64) -> FrameCands:
+                            C: int, budget: int = 64,
+                            out: Optional[FrameCands] = None) -> FrameCands:
     """frame_candidates over a batched grid with the clips folded into
     frames (the reference's nn.py:359-396): q_flat [C*T, N, 3], frame t
     against clip t // T's table -> FrameCands [C*T, budget * K]. Each
@@ -266,14 +269,16 @@ def frame_candidates_folded(grid_b: VoxelGrid, q_flat: torch.Tensor,
     are those of frame_candidates on each clip's own grid."""
     origin, offs, pts, idx = _fold(grid_b, q_flat, C)
     return _frame_tables(_cell_ids(grid_b, q_flat, origin), pts, idx,
-                         grid_b.cand_pts.shape[1], budget, offs)
+                         grid_b.cand_pts.shape[1], budget, offs, out)
 
 
 def _frame_tables(flat: torch.Tensor, cand_pts: torch.Tensor,
                   cand_idx: torch.Tensor, num_cells: int, budget: int,
-                  offs: Optional[torch.Tensor] = None) -> FrameCands:
+                  offs: Optional[torch.Tensor] = None,
+                  out: Optional[FrameCands] = None) -> FrameCands:
     """Cell ids [T, N] -> the tables of each frame's sorted unique cells;
-    `offs` [T, 1] shifts a frame's rows into concatenated tables."""
+    `offs` [T, 1] shifts a frame's rows into concatenated tables; the
+    last gather and mask write into `out` when given."""
     T = flat.shape[0]
     K = cand_pts.shape[-2]
     s = torch.sort(flat, dim=1).values                     # [T, N]
@@ -286,14 +291,22 @@ def _frame_tables(flat: torch.Tensor, cand_pts: torch.Tensor,
     safe_u = torch.clamp(uniq, max=num_cells - 1)
     if offs is not None:
         safe_u = safe_u + offs
-    cand = cand_pts[safe_u].reshape(T, budget * K, 3)
-    valid = ((cand_idx[safe_u] >= 0).reshape(T, budget * K)
-             & (uniq < _FILL_CELL).repeat_interleave(K, dim=-1))
-    return FrameCands(cand=cand, valid=valid)
+    if out is None:
+        out = FrameCands(
+            cand=torch.empty((T, budget * K, 3), dtype=cand_pts.dtype,
+                             device=flat.device),
+            valid=torch.empty((T, budget * K), dtype=torch.bool,
+                              device=flat.device))
+    rows = safe_u.reshape(-1)
+    torch.index_select(cand_pts, 0, rows, out=out.cand.view(T * budget, K, 3))
+    torch.bitwise_and(
+        (cand_idx.index_select(0, rows) >= 0).reshape(T, budget * K),
+        (uniq < _FILL_CELL).repeat_interleave(K, dim=-1), out=out.valid)
+    return out
 
 
-def compact_candidates(q: torch.Tensor, fc: FrameCands,
-                       P_out: int) -> FrameCands:
+def compact_candidates(q: torch.Tensor, fc: FrameCands, P_out: int,
+                       out: Optional[FrameCands] = None) -> FrameCands:
     """Shrink each frame's table to the `P_out` candidates most
     contended to be some query's nearest neighbour.
 
@@ -303,21 +316,30 @@ def compact_candidates(q: torch.Tensor, fc: FrameCands,
     while they number <= P_out. Selection is a STABLE ascending sort on
     the score (lax.top_k's tie order: lower index first — score-0 ties
     are the common case). Invalid slots score +inf. P_out >= P returns
-    fc unchanged."""
+    fc unchanged. The selections are gathered into `out`'s tensors when
+    given."""
     P = fc.cand.shape[-2]
     if P_out >= P:
         return fc
     d = cand_cuda.dist_sq_tnp(q.to(torch.bfloat16),
                               fc.cand.to(torch.bfloat16))   # [T, N, P]
-    big = torch.tensor(BIG, dtype=torch.bfloat16, device=q.device)
-    d = torch.where(fc.valid[:, None, :], d, big)
+    d = torch.where(fc.valid[:, None, :], d, bf16_big(q.device))
     dnn = torch.min(d, dim=-1, keepdim=True).values
     score = torch.min(d - dnn, dim=1).values.to(torch.float32)   # [T, P]
     score = torch.where(fc.valid, score, float("inf"))
     idx = torch.sort(score, dim=1, stable=True).indices[:, :P_out]
-    cand = torch.gather(fc.cand, 1, idx[..., None].expand(-1, -1, 3))
-    valid = torch.gather(fc.valid, 1, idx)
-    return FrameCands(cand=cand, valid=valid)
+    if out is None:
+        out = FrameCands(cand=fc.cand.new_empty(idx.shape + (3,)),
+                         valid=fc.valid.new_empty(idx.shape))
+    torch.gather(fc.cand, 1, idx[..., None].expand(-1, -1, 3), out=out.cand)
+    torch.gather(fc.valid, 1, idx, out=out.valid)
+    return out
+
+
+def bf16_big(device) -> torch.Tensor:
+    """BIG in bf16, a 0-d tensor made on `device` (a refresh captured as
+    a graph uploads nothing)."""
+    return torch.full((), BIG, dtype=torch.bfloat16, device=device)
 
 
 def nn_to_candidates(q: torch.Tensor, cands: FrameCands) -> torch.Tensor:

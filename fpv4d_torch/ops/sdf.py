@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,18 +60,26 @@ def plane_sdf(y0: float = -1.0, extent: float = 6.0, dim: int = 32,
                    mins=-box, maxs=box.clone())
 
 
-def sample(sdf: SdfGrid, pts: torch.Tensor
+def dims(shape, dtype, device) -> torch.Tensor:
+    """A grid's dims [3] as a tensor made on `device` (a linearization
+    captured as a graph uploads nothing): torch.tensor(shape)'s values."""
+    return torch.stack([torch.full((), d, dtype=dtype, device=device)
+                        for d in shape])
+
+
+def sample(sdf: SdfGrid, pts: torch.Tensor, out=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trilinear SDF value + analytic gradient at pts [..., 3] ->
-    (s [...], g [..., 3]). Points outside the box clamp to it."""
+    (s [...], g [..., 3]), written into the pair `out` when given. Points
+    outside the box clamp to it."""
     shape = sdf.values.shape
-    D = torch.tensor(shape, dtype=torch.float32, device=pts.device)
+    D = dims(shape, torch.float32, pts.device)
     cell = (sdf.maxs - sdf.mins) / (D - 1.0)
     u = torch.clamp((pts - sdf.mins) / cell, min=0.0)
     u = torch.minimum(u, D - 1.0)
     # the base corner is clamped to D-2 in integers: a float epsilon is
     # below f32 ulp for large grids and would round back to D-1
-    top = torch.tensor(shape, dtype=torch.int64, device=pts.device) - 2
+    top = dims(shape, torch.int64, pts.device) - 2
     i0 = torch.minimum(torch.clamp(torch.floor(u).to(torch.int64), min=0),
                        top)
     f = torch.clamp(u - i0, 0.0, 1.0)
@@ -92,13 +100,14 @@ def sample(sdf: SdfGrid, pts: torch.Tensor
     c11 = c011 * (1 - fx) + c111 * fx
     c0 = c00 * (1 - fy) + c10 * fy
     c1 = c01 * (1 - fy) + c11 * fy
-    s = c0 * (1 - fz) + c1 * fz
+    s_out, g_out = out if out is not None else (None, None)
+    s = torch.add(c0 * (1 - fz), c1 * fz, out=s_out)
 
     gx = ((c100 - c000) * (1 - fy) + (c110 - c010) * fy) * (1 - fz) \
         + ((c101 - c001) * (1 - fy) + (c111 - c011) * fy) * fz
     gy = (c10 - c00) * (1 - fz) + (c11 - c01) * fz
     gz = c1 - c0
-    g = torch.stack([gx, gy, gz], dim=-1) / cell
+    g = torch.div(torch.stack([gx, gy, gz], dim=-1), cell, out=g_out)
     return s, g
 
 
@@ -111,13 +120,19 @@ class SdfLin:
     v0: torch.Tensor
 
 
-def linearize(sdf: SdfGrid, verts_w: torch.Tensor) -> SdfLin:
+def linearize(sdf: SdfGrid, verts_w: torch.Tensor,
+              out: Optional[SdfLin] = None) -> SdfLin:
     """Sample the SDF and its gradient at the current world vertices
-    (refresh time; no gradient flows through the tables)."""
+    (refresh time; no gradient flows through the tables), into `out`'s
+    tensors when given (v0 is then a copy of the vertices)."""
     with torch.no_grad():
         v0 = verts_w.detach()
-        s0, g = sample(sdf, v0)
-    return SdfLin(s0=s0, g=g, v0=v0)
+        if out is None:
+            s0, g = sample(sdf, v0)
+            return SdfLin(s0=s0, g=g, v0=v0)
+        sample(sdf, v0, out=(out.s0, out.g))
+        out.v0.copy_(v0)
+    return out
 
 
 def collision_penalty(verts_w: torch.Tensor, lin: SdfLin) -> torch.Tensor:

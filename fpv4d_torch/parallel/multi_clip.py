@@ -14,11 +14,11 @@ FrameShard: a halo of 2 frames, per-clip partial losses, whole leaves'
 gradients summed): init runs on the whole clip, then each rank keeps
 its frames, and the results are gathered over both axes.
 
-A rank whose frames group has one rank runs each phase through the
+A rank whose frames group has one rank runs each phase, each contact
+refresh, SDF linearization and planted-foot detection through the
 solver's phase program (solve/step_graph.py: on the card, a CUDA graph
-of the step captured once and replayed); a frames group of more ranks
-runs eagerly, its gradient sums and halo being collectives inside the
-step.
+captured once and replayed); a frames group of more ranks runs eagerly,
+its gradient sums and halo being collectives inside the step.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from fpv4d_torch.solve import step_graph
 from fpv4d_torch.solve.adam import Adam
 from fpv4d_torch.solve.clip_solve import (DEFAULT_REFRESH_STEPS, ClipSolver,
                                           ClipState, _as_f32,
-                                          capture_seconds)
+                                          capture_seconds, refresh_contact)
 
 _FAR = 1e6
 
@@ -226,18 +226,26 @@ class MultiClipSolver:
                 # per frame, then the halo frames' weights from the next
                 # frames rank (foot skate reads one)
                 weight_right = fenced("detect", lambda: shard.halo(
-                    SH.detect_contact(solver, state_b, scenes_b, grid_b))[0])
+                    program.refresh(("detect",), lambda _: (
+                        SH.detect_contact(solver, state_b, scenes_b,
+                                          grid_b),))[0])[0])
             if lazy_cands or use_sdf:
                 # the single-clip solver's chunks: tables (and the SDF
-                # linearization) rebuilt between chunks, never inside
+                # linearization) rebuilt between chunks, never inside,
+                # through the program (captured once on the card)
                 chunk = max(1, lazy_chunk or cfg.contact_refresh_steps
                             or DEFAULT_REFRESH_STEPS)
+                pkey = (phase, lazy_cands, use_sdf)
                 hs = []
                 for s in range(0, steps, chunk):
-                    cands = (fenced("refresh", SH.refresh_cands, solver,
-                                    state_b, grid_b) if lazy_cands else None)
-                    lin = (fenced("sdf_refresh", SH.refresh_sdf, solver,
-                                  state_b) if use_sdf else None)
+                    cands = (fenced("refresh", lambda: refresh_contact(
+                        program, pkey, refresh_cands=lambda out:
+                        SH.refresh_cands(solver, state_b, grid_b, out))[0])
+                        if lazy_cands else None)
+                    lin = (fenced("sdf_refresh", lambda: refresh_contact(
+                        program, pkey, refresh_sdf=lambda out:
+                        SH.refresh_sdf(solver, state_b, out))[1])
+                        if use_sdf else None)
                     hs.append(fenced(phase, SH.run_phase, solver, phase,
                                      state_b, opt, target_b, weights_b,
                                      min(chunk, steps - s), cands=cands,

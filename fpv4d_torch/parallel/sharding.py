@@ -656,38 +656,46 @@ def run_phase(solver: ClipSolver, phase: str, state_b: ClipState,
 
 @torch.no_grad()
 def refresh_cands(solver: ClipSolver, state_b: ClipState,
-                  grid_b: NN.VoxelGrid) -> NN.FrameCands:
+                  grid_b: NN.VoxelGrid,
+                  out: Optional[NN.FrameCands] = None) -> NN.FrameCands:
     """The folded candidate tables [C*T, P] of the current contact
     vertices (the reference's build_sharded_refresh, folded as it folds
-    on one device). Compaction runs one clip's frames at a time, so its
-    [T, N, P] scoring tensors are a single clip's size: it is per frame,
-    so this changes no table."""
+    on one device), into `out`'s tensors when given. Compaction runs one
+    clip's frames at a time, so its [T, N, P] scoring tensors are a
+    single clip's size: it is per frame, so this changes no table."""
     C, T = state_b.body_6d.shape[:2]
     verts, _, _ = forward_world(solver.ctx, flatten_state(state_b),
                                 vertex_subset=solver.contact_vids,
                                 prune=solver._contact_prune,
                                 with_joints=False)
-    fc = NN.frame_candidates_folded(grid_b, verts, C,
-                                    solver.config.contact_cell_budget)
+    budget = solver.config.contact_cell_budget
     P_out = solver.config.contact_compact
-    if not P_out:
-        return fc
-    parts = [NN.compact_candidates(
-        verts[s:s + T], NN.FrameCands(fc.cand[s:s + T], fc.valid[s:s + T]),
-        P_out) for s in range(0, C * T, T)]
-    return NN.FrameCands(cand=torch.cat([p.cand for p in parts]),
-                         valid=torch.cat([p.valid for p in parts]))
+    if not P_out or P_out >= budget * grid_b.cand_pts.shape[2]:
+        return NN.frame_candidates_folded(grid_b, verts, C, budget, out)
+    fc = NN.frame_candidates_folded(grid_b, verts, C, budget)
+    if out is None:
+        out = NN.FrameCands(
+            cand=fc.cand.new_empty((C * T, P_out, 3)),
+            valid=fc.valid.new_empty((C * T, P_out)))
+    for s in range(0, C * T, T):
+        rows = slice(s, s + T)
+        NN.compact_candidates(
+            verts[rows], NN.FrameCands(fc.cand[rows], fc.valid[rows]),
+            P_out, out=NN.FrameCands(out.cand[rows], out.valid[rows]))
+    return out
 
 
 @torch.no_grad()
-def refresh_sdf(solver: ClipSolver, state_b: ClipState) -> SDF.SdfLin:
+def refresh_sdf(solver: ClipSolver, state_b: ClipState,
+                out: Optional[SDF.SdfLin] = None) -> SDF.SdfLin:
     """The scene SDF linearized at the folded contact vertices [C*T, N]
-    (the solver's one SDF serves every clip)."""
+    (the solver's one SDF serves every clip), into `out`'s tensors when
+    given."""
     verts, _, _ = forward_world(solver.ctx, flatten_state(state_b),
                                 vertex_subset=solver.contact_vids,
                                 prune=solver._contact_prune,
                                 with_joints=False)
-    return SDF.linearize(solver.sdf, verts)
+    return SDF.linearize(solver.sdf, verts, out)
 
 
 @torch.no_grad()

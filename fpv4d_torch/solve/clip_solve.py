@@ -28,13 +28,14 @@ Each phase runs through a phase program (solve/step_graph.py): on the
 card its step is captured once as a CUDA graph and replayed, the
 counterpart of the reference's one jitted lax.scan per phase; on the CPU
 (and on the card with ``step_graphs=False``) the same step runs eagerly.
-The optimizer is solve/adam.py, optax.adam's arithmetic with its state
-on the device.
+The contact refresh and the SDF linearization between a phase's chunks
+and the planted-foot detection run through the same program (on the
+card each captured once per fit, writing into the buffers the phase's
+graph reads), the counterparts of the reference's jitted ones. The
+optimizer is solve/adam.py, optax.adam's arithmetic with its state on
+the device.
 
 Differences of form from the reference, none of value:
-  * the contact refresh, the planted-foot detection and the SDF
-    linearization run eagerly between a phase's chunks (the reference
-    jits each as a program of its own);
   * a phase's gradient mask detaches the leaves it does not optimize,
     and their ``.grad`` stays a zero tensor (never None, or Adam would
     skip them): masked leaves keep moving on their Adam moments exactly
@@ -178,6 +179,30 @@ def capture_seconds(program: step_graph.PhaseProgram) -> Dict[str, float]:
     return out
 
 
+def _cands_tuple(fc: NN.FrameCands) -> tuple:
+    return fc.cand, fc.valid
+
+
+def _sdf_tuple(lin: SDF.SdfLin) -> tuple:
+    return lin.s0, lin.g, lin.v0
+
+
+def refresh_contact(program: step_graph.PhaseProgram, key: tuple,
+                    refresh_cands=None, refresh_sdf=None):
+    """A chunk's candidate tables and SDF linearization, each made by its
+    refresh function (``fn(out)``, writing into `out`'s tensors when
+    given; None makes None) through PhaseProgram.refresh under the keys
+    that stage_contact reads for the phase graph `key`."""
+    def run(name, fn, pack, unpack):
+        if fn is None:
+            return None
+        return unpack(*program.refresh(key + (name,), lambda out: pack(
+            fn(None if out is None else unpack(*out)))))
+
+    return (run("cands", refresh_cands, _cands_tuple, NN.FrameCands),
+            run("sdf", refresh_sdf, _sdf_tuple, SDF.SdfLin))
+
+
 def stage_contact(program: step_graph.PhaseProgram, key: tuple,
                   cands: Optional[NN.FrameCands],
                   sdf_lin: Optional[SDF.SdfLin]):
@@ -185,10 +210,10 @@ def stage_contact(program: step_graph.PhaseProgram, key: tuple,
     graph of `key` reads (PhaseProgram.stage; None stays None)."""
     if cands is not None:
         cands = NN.FrameCands(*program.stage(key + ("cands",),
-                                             (cands.cand, cands.valid)))
+                                             _cands_tuple(cands)))
     if sdf_lin is not None:
-        sdf_lin = SDF.SdfLin(*program.stage(
-            key + ("sdf",), (sdf_lin.s0, sdf_lin.g, sdf_lin.v0)))
+        sdf_lin = SDF.SdfLin(*program.stage(key + ("sdf",),
+                                            _sdf_tuple(sdf_lin)))
     return cands, sdf_lin
 
 
@@ -431,26 +456,32 @@ class ClipSolver:
                 and phase in self._CONTACT_PHASES)
 
     @torch.no_grad()
-    def _refresh_cands(self, state: ClipState) -> NN.FrameCands:
+    def _refresh_cands(self, state: ClipState,
+                       out: Optional[NN.FrameCands] = None
+                       ) -> NN.FrameCands:
         """Rebuild the per-frame candidate tables from the current
-        world-space contact vertices (between step chunks)."""
+        world-space contact vertices (between step chunks), into `out`'s
+        tensors when given."""
         verts_w, _, _ = forward_world(
             self.ctx, state, vertex_subset=self.contact_vids,
             prune=self._contact_prune, with_joints=False)
-        fc = NN.frame_candidates(self.grid, verts_w,
-                                 self.config.contact_cell_budget)
-        if self.config.contact_compact:
-            fc = NN.compact_candidates(verts_w, fc,
-                                       self.config.contact_compact)
-        return fc
+        P_out = self.config.contact_compact
+        budget = self.config.contact_cell_budget
+        if not P_out or P_out >= budget * self.grid.cand_pts.shape[1]:
+            return NN.frame_candidates(self.grid, verts_w, budget, out=out)
+        return NN.compact_candidates(
+            verts_w, NN.frame_candidates(self.grid, verts_w, budget), P_out,
+            out=out)
 
     @torch.no_grad()
-    def _refresh_sdf(self, state: ClipState) -> SDF.SdfLin:
-        """Linearize the scene SDF at the current contact vertices."""
+    def _refresh_sdf(self, state: ClipState,
+                     out: Optional[SDF.SdfLin] = None) -> SDF.SdfLin:
+        """Linearize the scene SDF at the current contact vertices (into
+        `out`'s tensors when given)."""
         verts_w, _, _ = forward_world(
             self.ctx, state, vertex_subset=self.contact_vids,
             prune=self._contact_prune, with_joints=False)
-        return SDF.linearize(self.sdf, verts_w)
+        return SDF.linearize(self.sdf, verts_w, out)
 
     @torch.no_grad()
     def detect_contact(self, state: ClipState) -> torch.Tensor:
@@ -616,14 +647,20 @@ class ClipSolver:
         if not (lazy_contact or lazy_sdf):
             return self._run_phase(state, opt, target_6d, frame_weights,
                                    num_steps, phase, program=program)
+        program = program or step_graph.eager(self.device)
+        key = (phase, lazy_contact, lazy_sdf)
         chunk = max(1, self.config.contact_refresh_steps
                     or DEFAULT_REFRESH_STEPS)
         hists = []
         left = num_steps
         while left > 0:
             k = min(chunk, left)
-            cands = self._refresh_cands(state) if lazy_contact else None
-            lin = self._refresh_sdf(state) if lazy_sdf else None
+            cands, lin = refresh_contact(
+                program, key,
+                (lambda out: self._refresh_cands(state, out))
+                if lazy_contact else None,
+                (lambda out: self._refresh_sdf(state, out))
+                if lazy_sdf else None)
             hists.append(self._run_phase(state, opt, target_6d,
                                          frame_weights, k, phase, cands,
                                          lin, program))
@@ -712,8 +749,9 @@ class ClipSolver:
         if mode == "local":
             phase("local_a", n_a)
             phase("local_b", cfg.num_iter - n_a)
-            weight_right = timed("detect_contact",
-                                 lambda: self.detect_contact(state))
+            weight_right = timed("detect_contact", lambda: program.refresh(
+                ("detect_contact",), lambda _: (self.detect_contact(state),))
+                [0])
             weight_right = weight_right.to(self.device)
             n_c = int(cfg.contact_phase_frac * cfg.num_iter)
             hist["local_skate"] = timed("local_skate", lambda:

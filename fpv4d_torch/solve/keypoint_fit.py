@@ -39,6 +39,11 @@ Three optimizers, as in the reference:
     batched as lanes.
 The L-BFGS stages freeze masked variables inside the objective,
 ``x*m + x.detach()*(1-m)``, as the reference's stop_gradient splice.
+Their iterations run through the same phase program, the counterpart of
+the reference's jitted ``run_stage_lbfgs_joint`` and
+``run_stage_lbfgs_perframe`` scans: each of an iteration's five pieces
+is captured once per stage on the card, and the line search's rounds
+replay one piece until a device flag says every lane has ended.
 
 Keypoints may carry a leading clips axis [C, T, 25, 3] (hands and face
 likewise): loss normalization and optimizer state stay per clip (the
@@ -109,9 +114,12 @@ LEAVES = ("global_orient", "camera_translation", "betas", "latent",
           "left_hand", "right_hand", "jaw", "expression")
 Vars = Dict[str, torch.Tensor]
 
-# host seconds of each Adam stage's graph capture in the last fit of
-# this process (empty on the eager route)
+# host seconds of each stage's graph captures in the last fit of this
+# process, by stage (empty on the eager route)
 capture_seconds: Dict[str, float] = {}
+# the line-search rounds of each L-BFGS iteration in the last fit of
+# this process, by stage (empty for Adam)
+lbfgs_rounds: Dict[str, list] = {}
 
 
 def gmof(x: torch.Tensor, rho: float) -> torch.Tensor:
@@ -274,11 +282,17 @@ def _run_adam(obj, v: Vars, opt: Adam, kp, face_kp, joint_w, face_w,
 
 
 def _run_lbfgs(obj, v: Vars, kp, face_kp, joint_w, face_w, mask,
-               config, per_frame: bool) -> Tuple[Vars, torch.Tensor]:
+               config, per_frame: bool,
+               program: Optional[step_graph.PhaseProgram] = None,
+               key=("lbfgs",), rounds: Optional[list] = None
+               ) -> Tuple[Vars, torch.Tensor]:
     """One L-BFGS stage from a fresh state. Joint: one lane per clip over
     its whole objective (zoom line search). Per frame: one lane per
-    frame (backtracking). Returns the variables and the per-clip history
-    [num_iter, C] (the per-frame variant's is the mean over frames)."""
+    frame (backtracking). The iterations' pieces run through `program`
+    (eager without one; captured once per `key` + (line search, piece)),
+    and `rounds` gets each iteration's line-search rounds. Returns the
+    variables and the per-clip history [num_iter, C] (the per-frame
+    variant's is the mean over frames)."""
     C, T = v["betas"].shape[:2]
     if per_frame:
         v, kp, face_kp = ({k: _per_frame(x) for k, x in v.items()},
@@ -293,10 +307,11 @@ def _run_lbfgs(obj, v: Vars, kp, face_kp, joint_w, face_w, mask,
         xs = xs * m + xs.detach() * (1.0 - m)
         return obj(_unpack(xs, sizes, F), kp, face_kp, joint_w, face_w)
 
+    linesearch = "backtracking" if per_frame else "zoom"
     x, hist = lbfgs.minimize(fn, _pack(v), config.num_iter,
                              memory_size=config.lbfgs_memory,
-                             linesearch="backtracking" if per_frame
-                             else "zoom")
+                             linesearch=linesearch, program=program,
+                             key=tuple(key) + (linesearch,), rounds=rounds)
     v = _unpack(x, sizes, F)
     if per_frame:
         v = {k: t.reshape(C, T, -1) for k, t in v.items()}
@@ -335,11 +350,12 @@ def fit_keypoints(model: SmplxModel, vposer_params: Dict[str, torch.Tensor],
     over that axis to every rank; the ranks along its other axes fit the
     same clips whole.
 
-    step_graphs: None captures each Adam stage's step as a CUDA graph on
-    a CUDA device and runs it eagerly on the CPU; False runs it eagerly
-    on either; True on the CPU raises. The L-BFGS stages run eagerly on
-    either route. The capture seconds of each stage land in the module's
-    ``capture_seconds``."""
+    step_graphs: None captures each Adam stage's step, or each L-BFGS
+    stage's iteration pieces (solve/lbfgs.py), as CUDA graphs on a CUDA
+    device and runs them eagerly on the CPU; False runs them eagerly on
+    either; True on the CPU raises. The capture seconds of each stage
+    land in the module's ``capture_seconds``, and each L-BFGS
+    iteration's line-search rounds in ``lbfgs_rounds``."""
     if config.optimizer not in ("adam", "lbfgs", "lbfgs_perframe"):
         raise ValueError(f"optimizer={config.optimizer!r}")
     dev = torch.device(device)
@@ -443,7 +459,8 @@ def fit_keypoints(model: SmplxModel, vposer_params: Dict[str, torch.Tensor],
          _stage_mask(camera=True, body=True, hands=True, face=use_face)),
     ][: config.stages]
     hist = {}
-    program = step_graph.PhaseProgram(dev, graphs and opt is not None)
+    lbfgs_rounds.clear()
+    program = step_graph.PhaseProgram(dev, graphs)
     try:
         for name, joint_w, face_w, mask in schedule:
             if opt is not None:
@@ -452,13 +469,15 @@ def fit_keypoints(model: SmplxModel, vposer_params: Dict[str, torch.Tensor],
             else:
                 v, h = _run_lbfgs(obj, v, kp, face_kp, joint_w, face_w,
                                   mask, config,
-                                  config.optimizer == "lbfgs_perframe")
+                                  config.optimizer == "lbfgs_perframe",
+                                  program, (name,),
+                                  lbfgs_rounds.setdefault(name, []))
             h = h.T.cpu().numpy()                          # [C, iters]
             hist[name] = h if batched else h[0]
     finally:
         capture_seconds.clear()
-        capture_seconds.update({k[0]: s for k, s in
-                                program.capture_seconds.items()})
+        for k, sec in program.capture_seconds.items():
+            capture_seconds[k[0]] = capture_seconds.get(k[0], 0.0) + sec
         program.close()
 
     with torch.no_grad():

@@ -8,8 +8,15 @@ The counterpart of the JAX package's one jitted ``lax.scan`` per phase:
 and ``phase_scan`` (fpv4d/parallel/sharding.py:187-330) and
 ``MultiClipSolver._get_step`` (fpv4d/parallel/multi_clip.py:69); for the
 stages ahead of the clip solve, the keypoint fit's ``run_stage``
-(fpv4d/solve/keypoint_fit.py:313-327) and the smoothers' scans over
-frames (fpv4d/solve/frame_fit.py:57-176).
+(fpv4d/solve/keypoint_fit.py:313-327), its ``run_stage_lbfgs_joint`` and
+``run_stage_lbfgs_perframe`` (:343-414, each a jitted scan of optax's
+L-BFGS with ``lax.while_loop`` line searches) and the smoothers' scans
+over frames (fpv4d/solve/frame_fit.py:57-176); between a phase's
+chunks, the jitted ``_refresh_cands``, ``_refresh_sdf`` and
+``detect_contact`` (fpv4d/solve/clip_solve.py:403-424, 432-446,
+480-502) and the fleet's ``build_sharded_refresh``,
+``build_sharded_sdf_refresh`` and ``build_sharded_detect_contact``
+(fpv4d/parallel/sharding.py:375-560).
 
 A step (solve/clip_solve.py ``ClipSolver._run_steps``) zeroes the
 gradients in place, computes the masked loss, runs the backward, takes
@@ -32,10 +39,27 @@ fits the next frame. ``PhaseProgram.run`` runs a phase's steps:
 * on the eager route (the CPU, and the card when asked), the same step
   runs ``num_steps`` times.
 
+``PhaseProgram.call`` runs one call of a function the same way (its
+first WARMUP_STEPS calls eager, then a capture and replays): an L-BFGS
+iteration (solve/lbfgs.py) is five such pieces, and its line search's
+rounds replay one of them while ``PhaseProgram.gate`` reads a
+one-element device flag between replays. The torch this targets
+(2.11) has no conditional graph nodes, so the host reads the flag
+there; the rounds cost one device evaluation each, so the read's
+round trip is small beside them. On a stand-in capture (a graph route
+off the card, in the tests) the gate runs every round up to the cap.
+``PhaseProgram.refresh`` runs a pure function of the program's buffers
+(a contact refresh, an SDF linearization, a planted-foot detection):
+its first call runs it eagerly as a warm-up and drops the result,
+keeps copies of its outputs, captures it writing into them and replays
+it; those copies are what ``stage`` hands the phase's step, so the
+refresh writes the tables straight into the buffers the step reads.
+
 A graph reads its inputs at the addresses it was captured on. Inputs
-that change between runs of one key (candidate tables, the SDF
-linearization, dct_a's hoisted joints) go through ``stage``, which
-copies each new value into the buffers of the first; everything else a
+that change between runs of one key go through ``stage``: a captured
+refresh's tables are already in its buffers, and any other value
+(dct_a's hoisted joints, tables made outside the program) is copied
+into the buffers of the first; everything else a
 step reads (the leaves, the Adam state, targets, weights, scenes,
 grids) is fixed for the life of the program, one fit. A failed capture
 or replay raises: there is no fallback to the eager route.
@@ -119,46 +143,81 @@ class PhaseProgram:
                 self._static[key] = held
             else:
                 for h, t in zip(held, tensors):
-                    h.copy_(t)
+                    if h is not t:
+                        h.copy_(t)
         return held
 
     def run(self, key: Hashable, step: Callable[[], torch.Tensor],
             num_steps: int) -> torch.Tensor:
         """num_steps steps of `step` (which returns the step's detached
         loss) -> the losses [num_steps, ...] on the device."""
-        hist: Optional[torch.Tensor] = None
-
-        def record(i: int, loss: torch.Tensor):
-            nonlocal hist
+        if num_steps <= 0:
+            return torch.empty(0, dtype=torch.float32, device=self.device)
+        hist = None
+        for i in range(num_steps):
+            loss = self.call(key, step)
             if hist is None:
                 hist = torch.empty((num_steps,) + loss.shape,
                                    dtype=torch.float32, device=loss.device)
             hist[i].copy_(loss)
+        return hist
 
-        if num_steps <= 0:
-            return torch.empty(0, dtype=torch.float32, device=self.device)
+    def call(self, key: Hashable, fn: Callable):
+        """One call of `fn`, a step or a piece of one that updates the
+        program's buffers in place -> its output (on the graph route, the
+        captured output that each replay rewrites). On the graph route
+        the first WARMUP_STEPS calls of a key run eagerly on the side
+        stream (real calls), the next is captured and replayed, and every
+        later call replays."""
         if not self.graphs:
-            for i in range(num_steps):
-                record(i, step())
-            return hist
-        first = 0
+            return fn()
         captured = self._steps.get(key)
         if captured is None:
             warm = self._warm.get(key, 0)
-            first = min(WARMUP_STEPS - warm, num_steps)
-            for i in range(first):
-                record(i, self._side(step))
-            self._warm[key] = warm + first
-            if first == num_steps:
-                return hist
-            captured = self._capture(key, step)
+            if warm < WARMUP_STEPS:
+                self._warm[key] = warm + 1
+                return self._side(fn)
+            captured = self._capture(key, fn)
+        return self._replay(captured)
+
+    def refresh(self, key: Hashable,
+                fn: Callable[[Optional[tuple]], tuple]) -> tuple:
+        """A function of the program's buffers that writes nothing else
+        (a contact refresh, a detection): `fn(out)` returns its tensors,
+        written into `out` when given (else new ones). Eagerly, fn(None).
+        On the graph route the first call runs fn(None) eagerly on the
+        side stream as a warm-up (its result dropped), keeps copies of
+        its tensors under `key` (what ``stage(key, ...)`` hands a step),
+        captures fn(copies) and replays it; every later call replays.
+        Returns the captured function's outputs: the kept copies where
+        fn writes into `out`, which ``stage`` then does not copy."""
+        if not self.graphs:
+            return fn(None)
+        captured = self._steps.get(key)
+        if captured is None:
+            with torch.no_grad():
+                held = tuple(t.detach().clone()
+                             for t in self._side(lambda: fn(None)))
+            self._static[key] = held
+            captured = self._capture(key, lambda: fn(held))
+        return self._replay(captured)
+
+    def gate(self, pred: torch.Tensor) -> bool:
+        """Whether a gated piece (a line-search round, a re-evaluation)
+        runs: a host read of the one-element device flag `pred` (the
+        eager route, and the card's graph route between replays), or
+        always on a stand-in capture (a graph route off the card), where
+        a piece that finds nothing to do changes nothing."""
+        if self.graphs and self.device.type != "cuda":
+            return True
+        return bool(pred)
+
+    def _replay(self, captured):
         graph, per_step = captured
-        for i in range(first, num_steps):
-            graph.replay()
-            record(i, graph.out)
+        graph.replay()
         for m, n in zip(COUNTED, per_step):
-            m.launches += n * (num_steps - first)
-        return hist
+            m.launches += n
+        return graph.out
 
     def _side(self, step: Callable[[], torch.Tensor]) -> torch.Tensor:
         """One eager step on the side stream, ordered after everything
@@ -172,7 +231,7 @@ class PhaseProgram:
         main.wait_stream(self.stream)
         return out
 
-    def _capture(self, key: Hashable, step: Callable[[], torch.Tensor]):
+    def _capture(self, key: Hashable, step: Callable):
         t0 = time.perf_counter()
         before = _counts()
         graph = self._make_graph(step, self.pool, self.stream)

@@ -6,15 +6,21 @@ Builds the standard problem at full size, seeds the state and the one
 Adam state as ``ClipSolver.fit`` does, and measures each unit of the
 local-mode solve in turn: a candidate-table refresh, a local_a step
 (contact against the refreshed tables), a local_b step and a skate
-step. The steps run as the solver's fit runs them (one phase program:
-on the card each phase's step captured once as a CUDA graph and
-replayed; ``--eager`` runs them eagerly). For each unit it times
+step. The units run as the solver's fit runs them (one phase program:
+on the card each phase's step and the refresh captured once as a CUDA
+graph and replayed; ``--eager`` runs them eagerly), and the refresh
+also eagerly ("refresh eager"), so one run reports it on both routes.
+For each unit it times
 ``--steps`` runs on the host clock around a synchronised window, then
 profiles ``--steps`` more with torch.profiler and sums the device time
-of every kernel, those inside a graph's replays included. It prints one
-JSON object: the card's name and power limit, the route and, per unit,
-wall ms, device-busy ms and busy share per run, K1's device ms per run,
-kernels run per run and the kernels with the most device time.
+of every kernel, those inside a graph's replays included. The busy
+share is taken in that profiled window alone: the time in which some
+kernel or copy ran (overlaps counted once) over the window's wall
+time, so it never exceeds 1. It prints one JSON object: the card's
+name and power limit, the route and, per unit, wall ms, device ms,
+busy ms, the profiled window's ms and the busy share per run, K1's
+device ms per run, kernels run per run and the kernels with the most
+device time.
 
 Exits non-zero without a CUDA device unless ``--device cpu`` is given
 (a rehearsal of the control flow at a small size: no device numbers).
@@ -30,6 +36,7 @@ import time
 import torch
 from torch.autograd import DeviceType
 
+from fpv4d_torch.solve.clip_solve import refresh_contact
 from fpv4d_torch.utils.bench_problem import standard_problem
 
 
@@ -54,6 +61,44 @@ def _kernel_times(prof):
     return sorted(out, key=lambda r: -r[1])
 
 
+def busy_span(spans) -> tuple[float, float]:
+    """(busy, span) of device activity given as (start, end) intervals:
+    busy is the length of their union (work that overlaps counts once),
+    span the distance from the first start to the last end."""
+    busy, end, first = 0.0, float("-inf"), None
+    for s, e in sorted(spans):
+        first = s if first is None else first
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy, (0.0 if first is None else end - first)
+
+
+def _device_spans(prof):
+    """(start, end) in us of every kernel and copy on the device, the
+    events _kernel_times sums."""
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def profiled(fn, dev: torch.device):
+    """fn() once under torch.profiler (device activity only):
+    (the profile, the window's wall us, its busy us). The window is at
+    least the span of the device activity it saw, so busy <= window."""
+    # the device's activity alone: every number here is a kernel's or a
+    # copy's, and the host's op events would multiply what the profiler
+    # records and key_averages() sorts
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        window_us = (time.perf_counter() - t0) * 1e6
+    busy_us, span_us = busy_span(_device_spans(prof))
+    return prof, max(window_us, span_us), busy_us
+
+
 def measure(fn, steps: int, dev: torch.device, top: int = 6) -> dict:
     """Wall and device time per run of fn(n) (which runs n units). On a
     phase program's graph route the warm-up captures the graph, and the
@@ -66,24 +111,21 @@ def measure(fn, steps: int, dev: torch.device, top: int = 6) -> dict:
     fn(steps)
     _sync(dev)
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    rec = {"wall_ms": wall_ms, "device_ms": None, "busy_share": None,
-           "k1_ms": None, "launches": None, "top": None, "seen": None}
+    rec = {"wall_ms": wall_ms, "device_ms": None, "busy_ms": None,
+           "window_ms": None, "busy_share": None, "k1_ms": None,
+           "launches": None, "top": None, "seen": None}
     if dev.type != "cuda":
         return rec
-    # the device's activity alone: every number here is a kernel's or a
-    # copy's, and the host's op events would multiply what the profiler
-    # records and key_averages() sorts
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn(steps)
-        _sync(dev)
+    prof, window_us, busy_us = profiled(lambda: fn(steps), dev)
     ks = _kernel_times(prof)
     if sum(c for _, _, c in ks) < 2 * steps:
         rec["seen"] = False
         return rec
     dev_ms = sum(us for _, us, _ in ks) / 1e3 / steps
     k1_us = sum(us for k, us, _ in ks if "cand_nn_kernel" in k)
-    rec.update(seen=True, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
+    rec.update(seen=True, device_ms=dev_ms, busy_ms=busy_us / 1e3 / steps,
+               window_ms=window_us / 1e3 / steps,
+               busy_share=busy_us / window_us,
                k1_ms=k1_us / 1e3 / steps,
                launches=sum(c for _, _, c in ks) / steps,
                top=[{"kernel": k[:96], "ms": us / 1e3 / steps,
@@ -113,16 +155,24 @@ def main(argv=None) -> int:
         s.step_graphs = False
     state, target, fw = s.init_state(prob.body, prob.cam)
     state, opt = s.make_optimizer(state)
-    cands = s._refresh_cands(state)
     weight_right = s.detect_contact(state)
     program = s.program()
 
     def refresh(n):
         for _ in range(n):
+            cands = refresh_contact(program, ("local_a", True, False),
+                                    lambda out: s._refresh_cands(state,
+                                                                 out))[0]
+        return cands
+
+    def refresh_eager(n):
+        for _ in range(n):
             s._refresh_cands(state)
 
+    cands = refresh(1)
     units = {
         "refresh": refresh,
+        "refresh eager": refresh_eager,
         "local_a": lambda n: s._run_phase(state, opt, target, fw, n,
                                           "local_a", cands, program=program),
         "local_b": lambda n: s._run_phase(state, opt, target, fw, n,
@@ -142,7 +192,8 @@ def main(argv=None) -> int:
             timeout=60).stdout.strip().splitlines()[0]
     for name, fn in units.items():
         out[name] = measure(fn, args.steps, dev)
-    out["capture_s"] = {k[0]: v for k, v in program.capture_seconds.items()}
+    out["capture_s"] = {" ".join(map(str, k)): v
+                        for k, v in program.capture_seconds.items()}
     program.close()
     print(json.dumps(out))
     return 0

@@ -100,9 +100,10 @@ def test_small_cpu_run_prints_one_compact_line(tmp_path):
     assert ex["pallas_ok"] is None and ex["cand_kernel_ok"] is None
     # counts are printed off the card: the plain versions launch nothing
     assert ex["launches_per_solve"] == {"local": [0, 0]}
-    # the CPU runs every Adam stage eagerly: no capture
+    # the CPU runs every keypoint stage eagerly: no capture
     assert ex["keypoint_step_graphs"] is False
-    assert ex["keypoint_capture_s"] == {"fit": 0, "fleet": 0}
+    assert ex["keypoint_capture_s"] == {"fit": 0, "fleet": 0, "lbfgs": 0,
+                                        "lbfgs_perframe": 0}
     assert ex["fleet_max_clips_per_chip"] is None
     assert ex["fleet_implied_gb_per_clip"] is None
     full = json.loads((tmp_path / "bench_full.json").read_text())
@@ -259,6 +260,20 @@ def test_step_cost_bytes_read_once_and_written_once(small):
     _, nbytes = _count(small, "local_b", False)
     assert nbytes == 7 * leaves + small["target"].nbytes \
         + small["weights"].nbytes
+
+
+@pytest.mark.parametrize("spans,want", [
+    ([], (0.0, 0.0)),
+    ([(1.0, 3.0), (0.0, 2.0), (5.0, 6.0)], (4.0, 6.0)),
+    ([(5.0, 6.0), (0.0, 10.0), (2.0, 4.0)], (10.0, 10.0))])
+def test_busy_time_counts_overlapping_work_once(spans, want):
+    """The busy share's numerator is the union of the device's kernel
+    and copy intervals, so it never exceeds their span, nor the window
+    the profile takes (which is at least that span)."""
+    from fpv4d_torch.utils.profile_local import busy_span
+    busy, span = busy_span(spans)
+    assert (busy, span) == want
+    assert busy <= span
 
 
 def test_no_card_without_device_cpu_exits_1(monkeypatch, capsys):

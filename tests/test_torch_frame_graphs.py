@@ -292,12 +292,17 @@ def test_profile_stages_rehearsal(capsys):
     from fpv4d_torch.utils import profile_stages
     assert profile_stages.main(["--device", "cpu", "--T", "8", "--clips",
                                 "2", "--seq-T", "4", "--iters", "4",
-                                "--num-verts", "256"]) == 0
+                                "--lbfgs-iters", "2", "--perframe-iters",
+                                "2", "--num-verts", "256"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     stages = [k for k in out if k not in ("device", "power_limit")]
     assert stages == ["keypoints adam T=8", "keypoints batched 2 x 8",
+                      "keypoints lbfgs T=8", "keypoints lbfgs_perframe T=8",
                       "fit_independent T=8", "fit_sequential T=4",
                       "fit_sequential_motion T=4"]
+    for k in ("keypoints lbfgs T=8", "keypoints lbfgs_perframe T=8"):
+        assert 1 <= out[k]["eager"]["rounds_mean"] <= out[k]["eager"][
+            "rounds_max"]
     for k in stages:
         assert set(out[k]) == {"eager"}
         assert out[k]["eager"]["wall_s"] > 0
