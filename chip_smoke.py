@@ -101,19 +101,30 @@ Phases, each fatal on failure:
  21. frames     MultiClipSolver.fit on a {clips: 1, frames: 2} mesh: two
                 ranks spawned on the one card over gloo (NCCL takes one
                 rank per card), each holding 450 of the standard
-                problem's 900 frames: local/grid with the full schedule,
-                held to phase 5's local solve, K1 400 times per rank in
-                local_a; global/brute (40 + 10 steps) and dct/grid
-                (W = 15 windows over 2 ranks: the gathered trajectory;
-                30 + 30 steps), each held to the one-rank fold at the
-                same depth, K2 and K1 counted per rank; the whole leaves
-                equal on both ranks after every phase; fenced seconds
-                per stage beside the one-rank solve's; then K1 and K2
-                at a rank's shapes ([450, 813, 192]; 365,850 x 100,489)
-                bit-exact against their plain versions, with times;
+                problem's 900 frames, on the default route (graphs: each
+                rank's step captured in segments between its
+                collectives, its Adam step and refreshes captured):
+                local/grid with the full schedule, held to phase 5's
+                local solve, K1 400 times per rank in local_a;
+                global/brute (40 + 10 steps) and dct/grid (W = 15
+                windows over 2 ranks: the gathered trajectory; 30 + 30
+                steps), each held to the one-rank fold at the same
+                depth, K2 and K1 counted per rank; then the eager twins
+                (step_graphs=False) on the same ranks: local at 100 +
+                25 + 20 steps (two refreshes) beside a graph run at that
+                depth, global and dct at the depth above, each graph
+                run bit-equal to its twin on each rank (histories and
+                leaves) with the same K1 and K2 counts, or the phase
+                fails; the whole leaves equal on both ranks after every
+                phase; fenced seconds per stage and ms per step of both
+                routes beside the one-rank solve's, capture seconds per
+                key, peak memory per rank; then K1 and K2 at a rank's
+                shapes ([450, 813, 192]; 365,850 x 100,489) bit-exact
+                against their plain versions, with times;
  22. multiopt   ``multiopt --mesh clips=1,frames=2`` in the same two
-                ranks, on phase 19's clip directories: both exit 0, the
-                pkls within the CLI tests' tolerances of phase 19's
+                ranks, on phase 19's clip directories, on the graph
+                route (its captures recorded): both exit 0, the pkls
+                within the CLI tests' tolerances of phase 19's
                 one-process run;
  23. render     the world and ego renders at full width on the card
                 (fpv4d_torch/vis: a device rasterizer, no OpenCV or PIL):
@@ -216,11 +227,12 @@ Phases, each fatal on failure:
                 per iteration (mean and max), peak memory, K1 0 and K2 0;
                 graph and eager bit-equal (parameters and histories), or
                 the phase fails.
-Every solve and fleet fit (phases 5-7, 13-19, 26, 30, 31) and every
-keypoint fit and smoother (10-13, 30, 31) takes the default route,
-graphs on the card; the frames axis (21-22) runs eagerly (collectives
-inside the step), and the L-BFGS stages' eager twins of phase 34 run
-as today's eager route (a host read ending each line-search round).
+Every solve and fleet fit (phases 5-7, 13-19, 21-22, 26, 30, 31) and
+every keypoint fit and smoother (10-13, 30, 31) takes the default
+route, graphs on the card (the frames axis's steps in segments, its
+collectives eager between them); the eager twins of phases 21 and
+32-34 take step_graphs=False (the L-BFGS stages' with a host read
+ending each line-search round).
 Every count is set to 0 just
 before its path runs and read just after (phase 31's by the bench
 itself, around each solve).
@@ -1120,69 +1132,106 @@ _FRAMES_MESH = {"clips": 1, "frames": 2}
 # global_a + 10 global_b steps; 30 dct_a + 30 dct_b steps
 _FRAMES_DEPTH = {"global": dict(num_iter=50),
                  "dct": dict(num_iter_dct=60, dct_split=0.5)}
+# the depth of the local run's eager twin (and of its graph run): 100
+# local_a steps (two refreshes), 25 local_b, 20 skate; global and dct
+# run at their _FRAMES_DEPTH on both routes
+_FRAMES_TWIN = dict(num_iter=125, contact_phase_frac=0.16)
 
 
-def _frames_config(cfg, mode):
-    """The standard config at mode's frames-run depth."""
-    return replace(cfg, **_FRAMES_DEPTH.get(mode, {}))
+def _frames_config(cfg, mode, twin=False):
+    """The standard config at mode's frames-run depth (the local twins'
+    with `twin`)."""
+    return replace(cfg, **(_FRAMES_TWIN if twin and mode == "local"
+                           else _FRAMES_DEPTH.get(mode, {})))
 
 
-def _frames_problem(dev, mode):
+def _frames_problem(dev, mode, twin=False):
     """The standard problem for mode's frames run, at that run's depth
     (brute force for global, the grid otherwise)."""
     from fpv4d_torch.utils.bench_problem import standard_problem
     prob = standard_problem(device=dev, nn_impl="brute" if mode == "global"
                             else "grid")
-    prob.solver.config = _frames_config(prob.solver.config, mode)
+    prob.solver.config = _frames_config(prob.solver.config, mode, twin)
     return prob
+
+
+def _frames_fit(mesh, dev, mode, step_graphs=None, twin=False):
+    """One fenced fit of the standard clip on the frames mesh (the
+    default route, or step_graphs=False): its seconds, histories, stage
+    timings, K1 and K2 launches, native grid builds, whole-leaf spread,
+    capture seconds per key, peak memory and final leaves."""
+    from fpv4d_torch.io import native
+    from fpv4d_torch.ops import cand_cuda as C
+    from fpv4d_torch.ops import chamfer_cuda as K
+    from fpv4d_torch.parallel.multi_clip import MultiClipSolver, pad_scenes
+    prob = _frames_problem(dev, mode, twin)
+    if prob.solver.device != dev:
+        raise AssertionError(f"frames rank {mesh.rank} left the card")
+    if step_graphs is not None:
+        prob.solver.step_graphs = step_graphs
+    mc = MultiClipSolver(solver=prob.solver, mesh=mesh)
+    native.builds = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(C, K)
+    tm = {}
+    t0 = time.perf_counter()
+    state_b, hist = mc.fit(prob.body[None], prob.cam[None],
+                           pad_scenes([prob.scene]), mode=mode, timings=tm)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = (C.launches, K.launches)
+    return dict(
+        seconds=seconds, hist=hist, timings=tm, launches=launches,
+        native_builds=native.builds, spread=dict(mc.whole_leaf_spread),
+        finite=all(bool(torch.isfinite(x).all()) for x in state_b),
+        shapes=[tuple(x.shape) for x in state_b],
+        captures={" ".join(map(str, k)): v
+                  for k, v in mc.capture_seconds_by_key.items()},
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        leaves=[x.detach().cpu().numpy() for x in state_b])
 
 
 def _frames_rank(rank, init_file, out_dir, clip_dirs, device):
     """Phases 21-22 on one of the two gloo ranks sharing the card: each
-    mode's fenced fit of the standard clip on the frames mesh, its
-    launches and native grid builds, then multiopt on the same mesh.
-    Writes out_dir/rank<r>.pkl."""
+    mode's fenced fit of the standard clip on the frames mesh on the
+    default route (graphs), the eager twins (step_graphs=False) and the
+    local graph run at the twin's depth, then multiopt on the same mesh
+    (its fit's captures recorded). Writes out_dir/rank<r>.pkl."""
     from fpv4d_torch.cli.multiopt import main as multiopt
-    from fpv4d_torch.io import native
-    from fpv4d_torch.ops import cand_cuda as C
-    from fpv4d_torch.ops import chamfer_cuda as K
     from fpv4d_torch.parallel import sharding as SH
-    from fpv4d_torch.parallel.multi_clip import MultiClipSolver, pad_scenes
+    from fpv4d_torch.parallel.multi_clip import MultiClipSolver
     dev = torch.device(device)
     SH.maybe_initialize_distributed(init_method=f"file://{init_file}",
                                     world_size=2, rank=rank, device=dev,
                                     backend="gloo")
     mesh = SH.make_mesh(_FRAMES_MESH)
-    out = {}
+    out = {mode: _frames_fit(mesh, dev, mode)
+           for mode in ("local", "global", "dct")}
+    out["local twin"] = _frames_fit(mesh, dev, "local", twin=True)
     for mode in ("local", "global", "dct"):
-        prob = _frames_problem(dev, mode)
-        if prob.solver.device != dev:
-            raise AssertionError(f"frames rank {rank} left the card")
-        mc = MultiClipSolver(solver=prob.solver, mesh=mesh)
-        native.builds = 0
-        _reset_counts(C, K)
-        tm = {}
-        t0 = time.perf_counter()
-        state_b, hist = mc.fit(prob.body[None], prob.cam[None],
-                               pad_scenes([prob.scene]), mode=mode,
-                               timings=tm)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        out[mode] = dict(
-            seconds=time.perf_counter() - t0, hist=hist, timings=tm,
-            launches=(C.launches, K.launches), native_builds=native.builds,
-            spread=dict(mc.whole_leaf_spread),
-            finite=all(bool(torch.isfinite(x).all()) for x in state_b),
-            shapes=[tuple(x.shape) for x in state_b])
-        del prob, mc, state_b
-        torch.cuda.empty_cache()
+        out[f"{mode} eager"] = _frames_fit(mesh, dev, mode, False,
+                                           twin=True)
+    captured = []
+    fit = MultiClipSolver.fit
+
+    def recorded_fit(self, *a, **kw):
+        res = fit(self, *a, **kw)
+        captured.append(dict(self.capture_seconds))
+        return res
+
+    MultiClipSolver.fit = recorded_fit
     t0 = time.perf_counter()
-    rc = multiopt(clip_dirs + [
-        "--out", os.path.join(out_dir, "multiopt"), "--mode", "global",
-        "--iters", "10", "--scene-name", "scene.ply", "--model", "NONE",
-        "--vposer", "NONE", "--mesh", "clips=1,frames=2", "--device",
-        device])
-    out["multiopt"] = dict(rc=rc, seconds=time.perf_counter() - t0)
+    try:
+        rc = multiopt(clip_dirs + [
+            "--out", os.path.join(out_dir, "multiopt"), "--mode", "global",
+            "--iters", "10", "--scene-name", "scene.ply", "--model",
+            "NONE", "--vposer", "NONE", "--mesh", "clips=1,frames=2",
+            "--device", device])
+    finally:
+        MultiClipSolver.fit = fit
+    out["multiopt"] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                           captures=captured)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     torch.distributed.destroy_process_group()
@@ -1298,41 +1347,83 @@ def _frames_phase(C, K, prob, dev, local_hist, local_seconds, tmp,
         with open(out_dir / f"rank{r}.pkl", "rb") as f:
             ranks.append(pickle.load(f))
 
-    def depth(mode):
-        cfg = _frames_config(prob.solver.config, mode)
+    def depth(mode, twin=False):
+        cfg = _frames_config(prob.solver.config, mode, twin)
         n_a = int(cfg.num_iter * cfg.stage_split)
         n = cfg.num_iter_dct
         return {"local": (n_a, 0), "global": (0, n_a),
                 "dct": (n - int(n * cfg.dct_split), 0)}[mode]
 
+    runs = (("local", "local", False), ("global", "global", False),
+            ("dct", "dct", False), ("local twin", "local", True),
+            ("local eager", "local", True), ("global eager", "global", True),
+            ("dct eager", "dct", True))
     for r, res in enumerate(ranks):
-        for mode in ("local", "global", "dct"):
-            m = res[mode]
+        for run, mode, twin in runs:
+            m = res[run]
             stages = {k: round(v, 3) for k, v in m["timings"].items()
                       if k != "_fences"}
-            print(f"[frames/{mode}] rank {r}: {m['seconds']:.3f} s, stages "
-                  f"(s) {stages}; K1 launches {m['launches'][0]}, K2 "
-                  f"launches {m['launches'][1]} (expected {depth(mode)}); "
-                  f"native grid builds {m['native_builds']}; whole-leaf "
-                  f"spread per phase {m['spread']}", flush=True)
-            if tuple(m["launches"]) != depth(mode):
-                raise AssertionError(f"frames/{mode} rank {r}: launches")
+            per_step = {k: round(m["timings"][k.replace("local_skate",
+                                                         "skate")]
+                                 / len(v) * 1e3, 3)
+                        for k, v in m["hist"].items()}
+            print(f"[frames/{run}] rank {r}: {m['seconds']:.3f} s, stages "
+                  f"(s) {stages}, ms per step {per_step} "
+                  f"({ {k: len(v) for k, v in m['hist'].items()} } steps); "
+                  f"peak {m['peak_gib']:.3f} GiB; K1 launches "
+                  f"{m['launches'][0]}, K2 launches {m['launches'][1]} "
+                  f"(expected {depth(mode, twin)}); native grid builds "
+                  f"{m['native_builds']}; whole-leaf spread per phase "
+                  f"{m['spread']}", flush=True)
+            if m["captures"]:
+                caps = {k: round(v, 4) for k, v in m["captures"].items()}
+                print(f"[frames/{run}] rank {r}: capture seconds per key "
+                      f"{caps}", flush=True)
+            if run.endswith("eager") == bool(m["captures"]):
+                raise AssertionError(f"frames/{run} rank {r}: took the "
+                                     "wrong route")
+            if tuple(m["launches"]) != depth(mode, twin):
+                raise AssertionError(f"frames/{run} rank {r}: launches")
             if m["native_builds"] != (0 if mode == "global" else 1):
-                raise AssertionError(f"frames/{mode} rank {r}: the grid did "
+                raise AssertionError(f"frames/{run} rank {r}: the grid did "
                                      "not take the native route")
             if any(v != 0.0 for v in m["spread"].values()):
-                raise AssertionError(f"frames/{mode} rank {r}: the whole "
+                raise AssertionError(f"frames/{run} rank {r}: the whole "
                                      "leaves' copies parted")
             if not m["finite"] or m["shapes"][0] != (1, T, 78):
-                raise AssertionError(f"frames/{mode} rank {r}: the final "
+                raise AssertionError(f"frames/{run} rank {r}: the final "
                                      "state is not whole and finite")
             # the full schedule's phases end below where they began; the
-            # shallow runs are held to the one-rank fold below
+            # shallow runs are held to the one-rank fold and their twins
             for k, v in m["hist"].items():
                 if not (np.all(np.isfinite(v)) and (
-                        mode != "local" or np.all(v[-1] < v[0]))):
-                    raise AssertionError(f"frames/{mode} rank {r} {k}: "
+                        run != "local" or np.all(v[-1] < v[0]))):
+                    raise AssertionError(f"frames/{run} rank {r} {k}: "
                                          "losses not finite and decreasing")
+        # graph against eager at the same depth: the same bits
+        for mode in ("local", "global", "dct"):
+            g = res["local twin" if mode == "local" else mode]
+            e = res[f"{mode} eager"]
+            same = (g["hist"].keys() == e["hist"].keys()
+                    and all(np.array_equal(g["hist"][k], e["hist"][k])
+                            for k in g["hist"])
+                    and all(np.array_equal(a, b)
+                            for a, b in zip(g["leaves"], e["leaves"])))
+            worst = max(float(np.abs(a - b).max())
+                        for a, b in zip(g["leaves"], e["leaves"]))
+            print(f"[frames/{mode}] rank {r}: graph vs eager at "
+                  f"{ {k: len(v) for k, v in e['hist'].items()} } steps: "
+                  f"bit-equal={same} (largest leaf difference {worst:.3e}); "
+                  f"launches {g['launches']} / {e['launches']}; "
+                  f"{g['seconds']:.3f} / {e['seconds']:.3f} s; peak "
+                  f"{g['peak_gib']:.3f} / {e['peak_gib']:.3f} GiB",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"frames/{mode} rank {r}: the graph "
+                                     "route parted from the eager route")
+            if g["launches"] != e["launches"]:
+                raise AssertionError(f"frames/{mode} rank {r}: launches "
+                                     "differ between the routes")
     print(f"[frames/local] one-rank solve (phase 5) stages (s) "
           f"{ {k: round(v, 3) for k, v in local_seconds.items()} }",
           flush=True)
@@ -1366,12 +1457,16 @@ def _frames_phase(C, K, prob, dev, local_hist, local_seconds, tmp,
 
     # 22. multiopt on the frames mesh against phase 19's one-process run
     for r, res in enumerate(ranks):
+        mo = res["multiopt"]
         print(f"[multiopt] --mesh clips=1,frames=2 rank {r}: exit "
-              f"{res['multiopt']['rc']} in {res['multiopt']['seconds']:.2f} s",
-              flush=True)
-        if res["multiopt"]["rc"] != 0:
+              f"{mo['rc']} in {mo['seconds']:.2f} s; capture seconds per "
+              f"phase {mo['captures']}", flush=True)
+        if mo["rc"] != 0:
             raise AssertionError(f"multiopt on the frames mesh: rank {r} "
-                                 f"exited {res['multiopt']['rc']}")
+                                 f"exited {mo['rc']}")
+        if len(mo["captures"]) != 1 or not mo["captures"][0]:
+            raise AssertionError(f"multiopt on the frames mesh: rank {r} "
+                                 "did not take the graph route")
     got = [[body_pkl.load_frame(str(p)) for p in sorted(
         (out_dir / "multiopt" / Path(d).name).glob("*.pkl"))]
         for d in clip_dirs]

@@ -14,11 +14,18 @@ FrameShard: a halo of 2 frames, per-clip partial losses, whole leaves'
 gradients summed): init runs on the whole clip, then each rank keeps
 its frames, and the results are gathered over both axes.
 
-A rank whose frames group has one rank runs each phase, each contact
-refresh, SDF linearization and planted-foot detection through the
-solver's phase program (solve/step_graph.py: on the card, a CUDA graph
-captured once and replayed); a frames group of more ranks runs eagerly,
-its gradient sums and halo being collectives inside the step.
+Every rank runs each phase, each contact refresh, SDF linearization
+and planted-foot detection through the solver's phase program
+(solve/step_graph.py: on the card, CUDA graphs captured once and
+replayed; ``ClipSolver(step_graphs=False)`` runs all of it eagerly).
+On one rank of frames a phase's step is one graph. A rank of a frames
+group above one rank runs its step around its collectives (the halo,
+the gathered DCT joints, the whole leaves' gradient sum, all eager):
+the pieces between them are the program's segments, captured once per
+phase, and its Adam step a graph of its own (parallel/sharding.py
+run_phase). The refresh, linearization and detection hold no
+collective and are captured whole; the detection's halo is gathered
+outside its graph.
 """
 from __future__ import annotations
 
@@ -78,8 +85,10 @@ class MultiClipSolver:
         # frames rank's whole leaves (scale, a whole c_dct) and another
         # frames rank's copy: 0.0 while the copies move identically
         self.whole_leaf_spread: Dict[str, float] = {}
-        # host seconds of each phase's graph captures in the last fit
+        # host seconds of each phase's graph captures in the last fit, and
+        # of each capture by its program key
         self.capture_seconds: Dict[str, float] = {}
+        self.capture_seconds_by_key: Dict[tuple, float] = {}
 
     def _get_grids(self, scenes) -> Optional[NN.VoxelGrid]:
         """The clips' batched voxel grid, cached by the scenes' CONTENT
@@ -131,7 +140,8 @@ class MultiClipSolver:
 
         Returns the batched final state and per-phase loss histories
         [steps, C]; the seconds of each phase's graph captures land in
-        ``self.capture_seconds``."""
+        ``self.capture_seconds`` (by key in
+        ``self.capture_seconds_by_key``)."""
         if not self.mesh.member:
             raise ValueError(f"rank {self.mesh.rank} is outside the mesh "
                              f"{self.mesh.axes}")
@@ -139,16 +149,14 @@ class MultiClipSolver:
         camera_exts = np.asarray(camera_exts, np.float32)
         scenes = np.asarray(scenes, np.float32)
         lo, hi = SH.clip_range(self.mesh, bodies.shape[0], self.clip_axis)
-        frames = (self.mesh.axes.get(self.frame_axis, 1)
-                  if self.frame_axis else 1)
-        program = (self.solver.program() if frames == 1
-                   else step_graph.eager(self.solver.device))
+        program = self.solver.program()
         try:
             state_b, hist = self._fit_fold(bodies[lo:hi], camera_exts[lo:hi],
                                            scenes[lo:hi], mode, timings,
                                            program)
         finally:
             self.capture_seconds = capture_seconds(program)
+            self.capture_seconds_by_key = dict(program.capture_seconds)
             program.close()
         if self.mesh.axes.get(self.clip_axis, 1) > 1:
             state_b = ClipState(*(SH.all_gather_clips(

@@ -47,6 +47,17 @@ port has no mesh compiler, so it splits the work in three:
         its value and its c_dct gradient).
     Per-frame work (refresh and compaction, the SDF linearization, the
     contact detection, the contact NN) needs no collective.
+
+A frames rank's step is cut at its collectives (``run_phase``): the
+halo's gather, the rank's own terms (the segment "own"), for dct_b with
+a whole c_dct the joints' gather and the DCT term with the loss's sum
+(the segment "dct"), the backward through them (the halo's gather of
+gradients last), the gradient sum, the Adam step. The segments and the
+Adam step go through the phase program (solve/step_graph.py
+``PhaseProgram.segment`` and ``call``: on the card each captured once
+per phase and replayed), the collectives run eagerly between the
+replays; the eager route runs the same pieces eagerly, so the two give
+the same bits.
 """
 from __future__ import annotations
 
@@ -399,10 +410,16 @@ class FrameShard:
             return torch.nan_to_num(term, nan=0.0) * 0.0
         return term if f == 1.0 else term * f
 
+    @property
+    def gathers(self) -> bool:
+        """Whether the DCT term reads the whole clip's joints, gathered
+        over the frames ranks (c_dct whole on a frames axis)."""
+        return self.F > 1 and not self.dct_split
+
     def dct_joints(self, joints_b: torch.Tensor) -> torch.Tensor:
         """The rank's joints [C, L, J, 3] as the DCT term reads them: its
         own frames when c_dct splits on windows, else the whole clip."""
-        if self.F == 1 or self.dct_split:
+        if not self.gathers:
             return joints_b
         return _GatherFrames.apply(self, joints_b)
 
@@ -514,21 +531,51 @@ def _collision(solver: ClipSolver, verts_b: torch.Tensor,
         _unfold(sdf_lin.v0, C))
 
 
+def _call(name, fn, *inputs):
+    """A segment run as a plain call (a rank with no frames collective)."""
+    return fn(*inputs)
+
+
 def phase_losses(solver: ClipSolver, phase: str, state_b: ClipState,
                  target_b: torch.Tensor, weights_b: torch.Tensor,
                  scenes_b: Optional[torch.Tensor] = None,
                  grid_b: Optional[NN.VoxelGrid] = None,
                  cands: Optional[NN.FrameCands] = None,
                  sdf_lin: Optional[SDF.SdfLin] = None,
-                 shard: Optional[FrameShard] = None) -> torch.Tensor:
+                 shard: Optional[FrameShard] = None,
+                 segment=None) -> torch.Tensor:
     """ClipSolver.phase_loss of every clip -> per-clip losses [C], the
     same recipes and terms (dct_a runs in run_phase, joints hoisted). On
-    a frames shard, this rank's part of each clip's loss."""
+    a frames shard, this rank's part of each clip's loss: the halo
+    gathered, then the rank's own terms as the segment "own" and, where
+    dct_b gathers the joints, the DCT term and the loss's sum as the
+    segment "dct". `segment(name, fn, *inputs)` runs each (run_phase's
+    PhaseProgram.segment on a frames rank; a plain call without one)."""
+    sh = shard or FrameShard.whole(state_b.body_6d.shape[1])
+    seg = segment or _call
+    gathers = phase == "dct_b" and sh.gathers
+    body_ext, cam_ext = sh.halo(state_b.body_6d, state_b.camera_ext)
+    out = seg("own", lambda be, ce, *leaves: _own_losses(
+        solver, phase, ClipState(*leaves), be, ce, target_b, weights_b,
+        scenes_b, grid_b, cands, sdf_lin, sh, gathers),
+        body_ext, cam_ext, *state_b)
+    if not gathers:
+        return out
+    *terms, joints = out
+    return seg("dct", lambda j, c, *t: _dct_b_loss(solver, sh, j, c, *t),
+               sh.dct_joints(joints), state_b.c_dct, *terms)
+
+
+def _own_losses(solver: ClipSolver, phase: str, state_b: ClipState,
+                body_ext: torch.Tensor, cam_ext: torch.Tensor,
+                target_b, weights_b, scenes_b, grid_b, cands, sdf_lin,
+                sh: FrameShard, gathers: bool):
+    """phase_losses' terms of the rank's own frames and its halo ->
+    per-clip losses [C]; with `gathers` (dct_b), the terms the DCT term
+    is added to and the rank's joints [C, L, J, 3] instead."""
     cfg = solver.config
     w = cfg.weights
-    C, L = state_b.body_6d.shape[:2]
-    sh = shard or FrameShard.whole(L)
-    body_ext, cam_ext = sh.halo(state_b.body_6d, state_b.camera_ext)
+    C = state_b.body_6d.shape[0]
     rec = w.rec * sh.scaled(torch.vmap(losses.rec_l1)(
         target_b, state_b.body_6d, weights_b), 0)
     smooth = sh.scaled(torch.vmap(losses.second_order_smoothness)(
@@ -561,9 +608,12 @@ def phase_losses(solver: ClipSolver, phase: str, state_b: ClipState,
             prune=solver._contact_prune, merge_joints=True)
         contact = w.contact * sh.scaled(robust(_unfold(contact_dist(
             solver, verts, C, scenes_b, grid_b, cands), C)), 0)
-        dct = sh.dct_loss(sh.dct_joints(_unfold(joints, C)), state_b.c_dct,
-                          cfg.window)
-        loss = dct * 1e-4 + rec * 0.5 + contact * 0.1
+        terms = (rec, contact) + (() if sdf_lin is None else (sh.scaled(
+            _collision(solver, _unfold(verts, C), sdf_lin), 0),))
+        if gathers:
+            return terms + (_unfold(joints, C),)
+        return _dct_b_loss(solver, sh, _unfold(joints, C), state_b.c_dct,
+                           *terms)
     else:
         raise ValueError(f"unknown phase {phase!r}")
     if sdf_lin is not None:
@@ -572,16 +622,36 @@ def phase_losses(solver: ClipSolver, phase: str, state_b: ClipState,
     return loss
 
 
+def _dct_b_loss(solver: ClipSolver, sh: FrameShard, joints_b, c_dct_b,
+                rec, contact, collision=None) -> torch.Tensor:
+    """dct_b's loss [C] from the DCT term's joints (sh.dct_joints) and
+    c_dct, and the rank's other terms."""
+    loss = (sh.dct_loss(joints_b, c_dct_b, solver.config.window) * 1e-4
+            + rec * 0.5 + contact * 0.1)
+    return loss if collision is None else loss + collision
+
+
 def skate_losses(solver: ClipSolver, state_b: ClipState,
                  target_b: torch.Tensor, weights_b: torch.Tensor,
                  weight_right: torch.Tensor,
-                 shard: Optional[FrameShard] = None) -> torch.Tensor:
+                 shard: Optional[FrameShard] = None,
+                 segment=None) -> torch.Tensor:
     """ClipSolver.terms2's anti-skate objective of every clip -> [C]. On a
     frames shard, this rank's part, with weight_right [C, L + halo] from
-    FrameShard.halo."""
-    C, L = state_b.body_6d.shape[:2]
-    sh = shard or FrameShard.whole(L)
+    FrameShard.halo: the halo gathered, then the rank's own terms as the
+    segment "own" (`segment` as phase_losses takes it)."""
+    sh = shard or FrameShard.whole(state_b.body_6d.shape[1])
     body_ext, cam_ext = sh.halo(state_b.body_6d, state_b.camera_ext)
+    return (segment or _call)("own", lambda be, ce, wr, *leaves: _own_skate(
+        solver, ClipState(*leaves), be, ce, target_b, weights_b, wr, sh),
+        body_ext, cam_ext, weight_right, *state_b)
+
+
+def _own_skate(solver: ClipSolver, state_b: ClipState,
+               body_ext: torch.Tensor, cam_ext: torch.Tensor, target_b,
+               weights_b, weight_right, sh: FrameShard) -> torch.Tensor:
+    """skate_losses' terms of the rank's own frames and its halo."""
+    C = state_b.body_6d.shape[0]
     verts, _, _ = forward_world(
         solver.ctx, flatten_state(state_b._replace(body_6d=body_ext,
                                                    camera_ext=cam_ext)),
@@ -618,21 +688,27 @@ def run_phase(solver: ClipSolver, phase: str, state_b: ClipState,
     planted-foot weights. On a frames shard the whole leaves' gradients
     are summed over the frames ranks before every step, and the history,
     the ranks' partial losses, once at the end. `program` runs the steps
-    (eager without one; a frames group above one rank must pass an
-    eager one, its collectives run inside the step); its graph of the
-    phase is keyed by the phase, the contact inputs and `key`, and the
-    inputs that change between runs of a key (tables, linearization,
-    joints) are staged into the buffers it reads."""
+    (eager without one); its graph of the phase is keyed by the phase,
+    the contact inputs and `key`, and the inputs that change between
+    runs of a key (tables, linearization, joints) are staged into the
+    buffers it reads. A rank of a frames group above one rank runs its
+    step around the collectives (the halo, the gathered joints, the
+    gradient sum), the pieces between them the program's segments under
+    the same key (ClipSolver._run_steps)."""
     mask = solver.phase_mask(phase)
     sh = shard or FrameShard.whole(state_b.body_6d.shape[1])
     program = program or step_graph.eager(solver.device)
     key = (phase, cands is not None, sdf_lin is not None) + tuple(key)
     cands, sdf_lin = stage_contact(program, key, cands, sdf_lin)
+    frames = sh.F > 1
+    seg = ((lambda name, fn, *xs: program.segment(key + (name,), fn, *xs))
+           if frames else _call)
 
     def steps(loss_fn):
         return sh.all_reduce(solver._run_steps(
             state_b, opt, mask, num_steps, loss_fn,
-            reduce_grads=lambda: sh.reduce_grads(state_b, mask),
+            reduce_grads=((lambda: sh.reduce_grads(state_b, mask))
+                          if frames else None),
             program=program, key=key))
 
     if phase == "dct_a":
@@ -644,14 +720,14 @@ def run_phase(solver: ClipSolver, phase: str, state_b: ClipState,
                                          prune=solver._contact_prune)
             joints, = program.stage(key + ("joints",), (
                 sh.dct_joints(_unfold(joints, C)),))
-        return steps(lambda st: sh.dct_loss(joints, st.c_dct, cfg.window)
-                     * cfg.dct_mult)
+        return steps(lambda st: seg("own", lambda c: sh.dct_loss(
+            joints, c, cfg.window) * cfg.dct_mult, st.c_dct))
     if phase == "skate":
         return steps(lambda st: skate_losses(
-            solver, st, target_b, weights_b, weight_right, sh))
+            solver, st, target_b, weights_b, weight_right, sh, seg))
     return steps(lambda st: phase_losses(
         solver, phase, st, target_b, weights_b, scenes_b, grid_b, cands,
-        sdf_lin, sh))
+        sdf_lin, sh, seg))
 
 
 @torch.no_grad()

@@ -565,25 +565,32 @@ class ClipSolver:
         """num_steps Adam steps of loss_fn(masked state) -> per-step
         losses [num_steps] (kept on the device; read once per phase). A
         fleet's loss_fn returns per-clip losses [C]: the step descends
-        their sum and the history is [num_steps, C]. reduce_grads, if
-        given, runs between the backward and the step (a frames shard
-        sums its whole leaves' gradients there); a loss that reaches no
-        leaf (a frames rank's share of a term it does not count) has no
-        backward. `program` runs the steps (eager without one); a graph
-        is captured once per `key`, a tuple that starts with the
-        phase's name."""
+        their sum and the history is [num_steps, C]. A loss that reaches
+        no leaf (a frames rank's share of a term it does not count) has
+        no backward. `program` runs the steps (eager without one); a
+        graph is captured once per `key`, a tuple that starts with the
+        phase's name. reduce_grads, if given, is a collective run
+        between the backward and the Adam step (a frames rank's sum of
+        its whole leaves' gradients): such a step is not captured
+        whole; it runs as it is, its loss's pieces between collectives
+        captured as loss_fn's segments (PhaseProgram.segment) and its
+        Adam step under `key` + ("adam",)."""
         def step():
             opt.zero_grad()
             loss = loss_fn(masked(state, mask))
             if loss.requires_grad:
                 (loss.sum() if loss.ndim else loss).backward()
-            if reduce_grads is not None:
+            if reduce_grads is None:
+                opt.step()
+            else:
                 reduce_grads()
-            opt.step()
+                program.call(key + ("adam",), opt.step)
             return loss.detach()
 
         program = program or step_graph.eager(state.body_6d.device)
-        return program.run(key, step, num_steps)
+        if reduce_grads is None:
+            return program.run(key, step, num_steps)
+        return program.loop(step, num_steps)
 
     def _run_phase(self, state, opt, target_6d, frame_weights,
                    num_steps: int, phase: str,

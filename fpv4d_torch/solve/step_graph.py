@@ -5,7 +5,8 @@ The counterpart of the JAX package's one jitted ``lax.scan`` per phase:
 ``ClipSolver._run_phase`` (fpv4d/solve/clip_solve.py:639-714),
 ``_make_dct_only_phase`` (:716-762), ``phase_step_body`` (:764-841) and
 ``_run_skate_phase`` (:843-877); for the fleet, ``build_sharded_step``
-and ``phase_scan`` (fpv4d/parallel/sharding.py:187-330) and
+and ``phase_scan`` (fpv4d/parallel/sharding.py:187-372; on a frames
+mesh, the segments between a rank's collectives) and
 ``MultiClipSolver._get_step`` (fpv4d/parallel/multi_clip.py:69); for the
 stages ahead of the clip solve, the keypoint fit's ``run_stage``
 (fpv4d/solve/keypoint_fit.py:313-327), its ``run_stage_lbfgs_joint`` and
@@ -54,6 +55,24 @@ its first call runs it eagerly as a warm-up and drops the result,
 keeps copies of its outputs, captures it writing into them and replays
 it; those copies are what ``stage`` hands the phase's step, so the
 refresh writes the tables straight into the buffers the step reads.
+
+``PhaseProgram.segment`` runs a differentiable piece of a step whose
+collectives sit between its pieces (a frames rank's step,
+parallel/sharding.py): an autograd function whose forward and backward
+are each captured once per key and replayed, the partial-network
+capture of ``torch.cuda.make_graphed_callables``, so autograd chains
+its backward with the eager code around it (a collective's
+``autograd.Function``, another segment). Its first WARMUP_STEPS calls
+run eagerly on the side stream; the next captures the forward (into
+the program's one pool) at its call and the backward at the call of
+its backward, so segments are captured in the order their graphs are
+replayed and a later capture reuses no memory an earlier graph still
+needs. On every route the segment's backward is a ``torch.autograd.grad``
+of its outputs to its inputs, run eagerly or replayed, so the eager and
+graph routes sum a gradient's parts in the same order. An input at a
+new address (a collective's output, new every step) is copied into the
+buffer the graphs read; an input at the captured address (a leaf, a
+staged table) is not.
 
 A graph reads its inputs at the addresses it was captured on. Inputs
 that change between runs of one key go through ``stage``: a captured
@@ -106,6 +125,131 @@ class CudaGraphStep:
         self.graph.replay()
 
 
+def _as_tuple(out) -> tuple:
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def _copy_in(held: Sequence[torch.Tensor], given: Sequence[torch.Tensor],
+             key: Hashable) -> None:
+    """Each given tensor into the buffer a graph reads, unless it is that
+    buffer's address already."""
+    with torch.no_grad():
+        for h, x in zip(held, given):
+            if h.shape != x.shape:
+                raise ValueError(f"segment {key}: a tensor of shape "
+                                 f"{tuple(x.shape)} where the graph reads "
+                                 f"{tuple(h.shape)}")
+            if h.data_ptr() != x.data_ptr():
+                h.copy_(x)
+
+
+def _inputs(inputs, needs) -> tuple:
+    """A segment's inputs as the leaves its function runs on: aliases,
+    each needing a gradient where the segment's input does."""
+    return tuple(x.detach().requires_grad_(n) for x, n in zip(inputs, needs))
+
+
+def _input_grads(outs: tuple, diff: tuple, ins: tuple, grads: tuple
+                 ) -> tuple:
+    """The gradients of a segment's inputs from its outputs' (None for an
+    input that needs none or that no output reaches)."""
+    got = iter(torch.autograd.grad(
+        [o for o, d in zip(outs, diff) if d],
+        [x for x in ins if x.requires_grad],
+        [g for g, d in zip(grads, diff) if d], allow_unused=True))
+    return tuple(next(got) if x.requires_grad else None for x in ins)
+
+
+class _EagerSegment:
+    """One call of a segment's function under autograd, its backward a
+    torch.autograd.grad of its outputs: the eager route, and a graph
+    route's warm-up (run through `side`, the program's side stream)."""
+
+    def __init__(self, fn: Callable, side: Optional[Callable] = None):
+        self.fn = fn
+        self.side = side or (lambda f: f())
+
+    def forward(self, inputs, needs) -> tuple:
+        self.ins = _inputs(inputs, needs)
+
+        def run():
+            with torch.enable_grad():
+                return self.fn(*self.ins)
+
+        out = self.side(run)
+        self.single = not isinstance(out, (tuple, list))
+        self.outs = _as_tuple(out)
+        self.diff = tuple(o.requires_grad for o in self.outs)
+        return self.outs
+
+    def backward(self, grads) -> tuple:
+        return self.side(lambda: _input_grads(self.outs, self.diff, self.ins,
+                                              grads))
+
+
+class _CapturedSegment:
+    """A segment's forward, captured by `program` at its first call under
+    `key` + ("forward",), and its backward, captured at the first call of
+    its backward under `key` + ("backward",); each replayed afterwards.
+    The inputs at that first call are the buffers its graphs read."""
+
+    def __init__(self, program: "PhaseProgram", key: Hashable,
+                 fn: Callable):
+        self.program, self.key, self.fn = program, key, fn
+        self.fwd = self.bwd = None
+
+    def forward(self, inputs, needs) -> tuple:
+        if self.fwd is not None:
+            _copy_in(self.ins, inputs, self.key)
+            return self.program._replay(self.fwd)
+        self.ins = _inputs(inputs, needs)
+
+        def step():
+            with torch.enable_grad():
+                out = self.fn(*self.ins)
+            self.single = not isinstance(out, (tuple, list))
+            return _as_tuple(out)
+
+        self.fwd = self.program._capture(self.key + ("forward",), step)
+        outs = self.program._replay(self.fwd)
+        self.diff = tuple(o.requires_grad for o in outs)
+        return outs
+
+    def backward(self, grads) -> tuple:
+        if self.bwd is not None:
+            _copy_in([g for g in self.grads if g is not None],
+                     [g for g, d in zip(grads, self.diff) if d], self.key)
+            return self.program._replay(self.bwd)
+        self.grads = tuple(
+            g.detach().clone(memory_format=torch.contiguous_format)
+            if d else None for g, d in zip(grads, self.diff))
+        graph = self.fwd[0]
+        self.bwd = self.program._capture(
+            self.key + ("backward",),
+            lambda: _input_grads(graph.out, self.diff, self.ins, self.grads))
+        return self.program._replay(self.bwd)
+
+
+class _Segment(torch.autograd.Function):
+    """A segment on the autograd tape: its forward and backward are its
+    runner's (_EagerSegment or _CapturedSegment), whose outputs are
+    handed on as aliases."""
+
+    @staticmethod
+    def forward(ctx, runner, *inputs):
+        ctx.runner = runner
+        outs = tuple(o.detach() for o in runner.forward(
+            inputs, ctx.needs_input_grad[1:]))
+        ctx.mark_non_differentiable(*(o for o, d in zip(outs, runner.diff)
+                                      if not d))
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + tuple(None if g is None else g.detach()
+                               for g in ctx.runner.backward(grads))
+
+
 class PhaseProgram:
     """The phases of one fit on `device`: captured and replayed
     (`graphs`, CUDA only) or eager. `make_graph(step, pool, stream)`
@@ -126,6 +270,7 @@ class PhaseProgram:
         self._steps: Dict[Hashable, tuple] = {}
         self._warm: Dict[Hashable, int] = {}
         self._static: Dict[Hashable, tuple] = {}
+        self._segments: Dict[Hashable, _CapturedSegment] = {}
         # host seconds of each key's capture
         self.capture_seconds: Dict[Hashable, float] = {}
 
@@ -150,12 +295,20 @@ class PhaseProgram:
     def run(self, key: Hashable, step: Callable[[], torch.Tensor],
             num_steps: int) -> torch.Tensor:
         """num_steps steps of `step` (which returns the step's detached
-        loss) -> the losses [num_steps, ...] on the device."""
+        loss), each a ``call`` of `key` -> the losses [num_steps, ...] on
+        the device."""
+        return self.loop(lambda: self.call(key, step), num_steps)
+
+    def loop(self, step: Callable[[], torch.Tensor],
+             num_steps: int) -> torch.Tensor:
+        """num_steps calls of `step`, which returns the step's detached
+        loss, each run as it is (a step whose pieces go through the
+        program) -> the losses [num_steps, ...] on the device."""
         if num_steps <= 0:
             return torch.empty(0, dtype=torch.float32, device=self.device)
         hist = None
         for i in range(num_steps):
-            loss = self.call(key, step)
+            loss = step()
             if hist is None:
                 hist = torch.empty((num_steps,) + loss.shape,
                                    dtype=torch.float32, device=loss.device)
@@ -179,6 +332,32 @@ class PhaseProgram:
                 return self._side(fn)
             captured = self._capture(key, fn)
         return self._replay(captured)
+
+    def segment(self, key: Hashable, fn: Callable, *inputs: torch.Tensor):
+        """fn(*inputs), differentiable in its inputs, as a piece of a step
+        (its other tensors the program's fixed buffers) -> fn's output, a
+        tensor or a tuple of them (aliases of the captured outputs on the
+        graph route, valid until the key's next call). Eagerly, fn under
+        autograd, its backward a torch.autograd.grad of its outputs to its
+        inputs. On the graph route the first WARMUP_STEPS calls of a key
+        run that way on the side stream; the next captures the forward,
+        and its backward captures the backward; every later call replays
+        them, copying an input at a new address into the captured one's
+        buffer."""
+        if not self.graphs:
+            runner = _EagerSegment(fn)
+        else:
+            runner = self._segments.get(key)
+            if runner is None:
+                warm = self._warm.get(key, 0)
+                if warm < WARMUP_STEPS:
+                    self._warm[key] = warm + 1
+                    runner = _EagerSegment(fn, self._side)
+                else:
+                    runner = _CapturedSegment(self, key, fn)
+                    self._segments[key] = runner
+        outs = _Segment.apply(runner, *inputs)
+        return outs[0] if runner.single else outs
 
     def refresh(self, key: Hashable,
                 fn: Callable[[Optional[tuple]], tuple]) -> tuple:
@@ -246,6 +425,7 @@ class PhaseProgram:
         """Drop the graphs and the staged buffers (their memory pool goes
         with the last reference to it)."""
         self._steps.clear()
+        self._segments.clear()
         self._warm.clear()
         self._static.clear()
         self.pool = None

@@ -9,7 +9,10 @@ each running several cases; their bodies are tests/torch_frames_worker
       own {'clips': 1, 'frames': 2} mesh (two of the conftest's 8 virtual
       CPU devices; XLA's halo and reductions), the model and VPoser
       carried across through convert.py: body_6d at the reference's own
-      frames-axis tolerance, atol 1e-5 (tests/test_sharding.py).
+      frames-axis tolerance, atol 1e-5 (tests/test_sharding.py), on the
+      eager route and on the graph route with its capture stood in for
+      (the step's segments between the collectives, the Adam step's
+      graph).
   (b) Whole fits on {'clips': 1, 'frames': 2} against the port's
       one-process fold: local (grid with refresh and compaction, chunked
       skate with the halo frames' planted-foot weights), global with
@@ -21,12 +24,20 @@ each running several cases; their bodies are tests/torch_frames_worker
       all within 2 lr, scale 1e-5, camera_ext 1e-6, c_dct 1e-6 (1e-5 in
       dct mode). The whole leaves (scale, a whole c_dct) are equal on the
       two ranks after every phase.
+  graph route: local (grid with refresh and compaction, chunked skate),
+      global with brute force and dct with straddling windows (T=12,
+      W=3: the joints gathered between two segments) on the stand-in
+      graph route (each replay reruns the captured piece), bit-equal to
+      the eager route on each rank, histories and leaves, with every
+      phase's segments and Adam step captured.
   (c) {'clips': 2, 'frames': 2} over 4 ranks: the fleet and the batched
       keypoint fit against one process, at the same tolerances.
   multiopt: the default mesh {'clips': min(ranks, clips)} with 2 ranks
       and 1 clip (rank 1 outside the mesh) writes rank 0's pkls equal to
       a one-process run's; --mesh clips=1,frames=2 writes them within the
       CLI tests' tolerances (tests/test_torch_cli.py)."""
+
+import ast
 
 import numpy as np
 import jax.numpy as jnp
@@ -45,6 +56,7 @@ from fpv4d_torch.io import body_pkl
 from fpv4d_torch.io.ply import write_ply
 from fpv4d_torch.models import params as TP
 from fpv4d_torch.parallel.multi_clip import MultiClipSolver
+from fpv4d_torch.solve import step_graph
 from fpv4d_torch.solve.keypoint_fit import fit_keypoints
 
 import torch_frames_worker as W
@@ -136,7 +148,9 @@ def test_local_a_steps_match_the_reference_frames_mesh(two_ranks):
     assert got[0]["local_a"].shape == want.shape == (1, 8, 78)
     assert np.abs(want - np.asarray(state_b.body_6d)).max() > 1e-3
     for g in got:
-        np.testing.assert_allclose(g["local_a"], want, atol=1e-5)
+        for route in ("local_a", "local_a_graph"):
+            np.testing.assert_allclose(g[route], want, atol=1e-5,
+                                       err_msg=route)
 
 
 @pytest.mark.parametrize("name", sorted(W.CASES))
@@ -168,6 +182,37 @@ def test_frames_fit_matches_the_one_rank_fold(two_ranks, name):
     for k in ("body_6d", "scale", "camera_ext", "c_dct"):
         np.testing.assert_array_equal(got[0][f"{name}/{k}"],
                                       got[1][f"{name}/{k}"])
+
+
+@pytest.mark.parametrize("name", W.GRAPH_CASES)
+def test_frames_graph_route_matches_eager(two_ranks, name):
+    _, _, got = two_ranks
+    mode = W.CASES[name][1]
+    for g in got:
+        keys = [k for k in g.files if k.startswith(f"{name}/graph/")]
+        assert {k.split("/")[-1] for k in keys} >= {
+            "body_6d", "scale", "camera_ext", "c_dct", "spread"}
+        for k in keys:
+            if not k.endswith("/captures"):
+                np.testing.assert_array_equal(
+                    g[k], g[k.replace("/graph/", "/")], err_msg=k)
+        assert np.all(g[f"{name}/graph/spread"] == 0.0)
+        captured = [ast.literal_eval(k) for k in g[f"{name}/graph/captures"]]
+        phases = {k[0] for k in captured}
+        # a phase of more steps than the warm-up's is captured
+        assert phases >= {
+            k.replace("local_skate", "skate") for k in W.problem_phases(mode)
+            if len(g[f"{name}/graph/hist_{k}"]) > step_graph.WARMUP_STEPS}
+        for phase in phases - {"detect"}:
+            mine = [k for k in captured if k[0] == phase]
+            assert any(k[-2:] == ("own", "forward") for k in mine), phase
+            assert any(k[-1] == "adam" for k in mine), phase
+            # a whole step is never captured: it holds collectives
+            assert all(k[-1] in ("forward", "backward", "adam", "cands",
+                                 "sdf") for k in mine), mine
+        if name == "straddle_dct":
+            assert ("dct_b", True, False, "dct", "forward") in captured
+            assert ("dct_b", True, False, "dct", "backward") in captured
 
 
 def _frames(path):

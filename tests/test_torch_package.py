@@ -49,7 +49,7 @@ _EXPECTED = (
     "fpv4d_torch.utils.accuracy_report", "fpv4d_torch.io.native",
     "fpv4d_torch.bench", "fpv4d_torch.utils.cost",
     "fpv4d_torch.solve.adam", "fpv4d_torch.solve.step_graph",
-    "fpv4d_torch.utils.profile_stages")
+    "fpv4d_torch.utils.profile_stages", "fpv4d_torch.utils.profile_frames")
 
 _HOST_LIBS = ("cv2", "PIL", "joblib")
 

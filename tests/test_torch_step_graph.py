@@ -19,7 +19,17 @@
   same result;
 * launch accounting: replays x the launches one captured step holds,
   the capture itself not counted;
-* on the card (`gpu`), the graph route against the eager one.
+* the segment (PhaseProgram.segment, a frames rank's pieces between its
+  collectives): outputs and input gradients bit-equal to plain autograd
+  over warm-up, capture and replays, two segments chained through an
+  eager autograd.Function; an input at a new address copied into the
+  captured buffer, one at that address not; K1's and K2's counts over
+  warm-up, capture and replays (forward and backward graphs); the sync
+  guard, and no collective, inside every captured segment of a frames
+  rank's step (rank 0 of two, its partner's collectives answered in
+  this process);
+* on the card (`gpu`), the graph route against the eager one, and a
+  segment chained with an eager op, graph against eager.
 
 The module imports no JAX: the card's machine runs its `gpu` test with
 ``--noconftest``, and the tests that hold the port to JAX import it
@@ -30,9 +40,11 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from fpv4d_torch.ops import cand_cuda, chamfer_cuda
+from fpv4d_torch.parallel import sharding as SH
 from fpv4d_torch.parallel.multi_clip import MultiClipSolver
 from fpv4d_torch.solve import step_graph
 from fpv4d_torch.solve.adam import Adam
@@ -116,12 +128,14 @@ _SYNCS = {"aten._local_scalar_dense", "aten.nonzero", "aten.masked_select",
 
 class NoSync(TorchDispatchMode):
     """Raises on an op that reads a value back to the host or makes a
-    tensor of host data (a capture cannot), and on boolean-mask indexing
-    (a data-dependent shape)."""
+    tensor of host data (a capture cannot), on a collective (gloo stages
+    its tensors through the host), and on boolean-mask indexing (a
+    data-dependent shape)."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = func.overloadpacket._qualified_op_name.replace("::", ".")
-        if name in _SYNCS:
+        if name in _SYNCS or name.startswith(("c10d.",
+                                              "_c10d_functional.")):
             raise AssertionError(f"{name} in a captured step")
         if name in ("aten.index", "aten.index_put", "aten.index_put_"):
             idx = args[1] if len(args) > 1 else []
@@ -133,13 +147,18 @@ class NoSync(TorchDispatchMode):
 
 
 class GuardedCapture:
-    """Runs the step once under NoSync where a capture would record it;
-    a replay does nothing."""
+    """Runs the step once under NoSync where a capture would record it
+    (``active`` meanwhile); a replay does nothing."""
     captured = []
+    active = False
 
     def __init__(self, step, pool, stream):
-        with NoSync():
-            self.out = step()
+        GuardedCapture.active = True
+        try:
+            with NoSync():
+                self.out = step()
+        finally:
+            GuardedCapture.active = False
         GuardedCapture.captured.append(self)
 
     def replay(self):
@@ -380,6 +399,204 @@ def test_routes_on_the_cpu():
         step_graph.PhaseProgram("cpu", True)
 
 
+# -- the segment ------------------------------------------------------------------
+
+class _Swap(torch.autograd.Function):
+    """An eager op between two segments, as a collective's function is:
+    its rows reversed, the gradient reversed back and doubled."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.flip(0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.flip(0) * 2.0
+
+
+def _first(x, w):
+    h = torch.tanh(x @ w)
+    return h.sum(1), h
+
+
+def _second(h, w, part):
+    return (h * w[:, :1].T).square().sum(1) + part
+
+
+def _chain(prog, x, w):
+    """segment -> eager op -> segment, or the plain functions without a
+    program; a step's loss [B]."""
+    if prog is None:
+        part, h = _first(x, w)
+        return _second(_Swap.apply(h), w, part)
+    part, h = prog.segment(("k", "first"), _first, x, w)
+    return prog.segment(("k", "second"), _second, _Swap.apply(h), w, part)
+
+
+def _steps(prog, n=6, seed=0):
+    """n steps, each on a new x (a new address, as a collective's output
+    is) and the same leaf w: the losses and gradients of every step."""
+    rng = np.random.RandomState(seed)
+    w = torch.tensor(rng.randn(4, 4).astype(np.float32), requires_grad=True)
+    out = []
+    for _ in range(n):
+        x = torch.tensor(rng.randn(5, 4).astype(np.float32),
+                         requires_grad=True)
+        loss = _chain(prog, x * 1.0, w)
+        w.grad = None
+        loss.sum().backward()
+        out.append((loss.detach().clone(), x.grad.clone(), w.grad.clone()))
+        with torch.no_grad():
+            w -= 0.1 * w.grad
+    return out
+
+
+@pytest.mark.parametrize("route", ["eager", "graph"])
+def test_segment_matches_plain_autograd(route):
+    """Over 2 warm-up calls, the capture and 3 replays (a stand-in whose
+    replay reruns the captured function): the same bits as the plain
+    functions under autograd."""
+    prog = (step_graph.eager("cpu") if route == "eager"
+            else step_graph.PhaseProgram("cpu", True, RerunCapture))
+    want = _steps(None)
+    got = _steps(prog)
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    if route == "graph":
+        assert set(prog.capture_seconds) == {
+            ("k", n, d) for n in ("first", "second")
+            for d in ("forward", "backward")}
+
+
+class _Ops(TorchDispatchMode):
+    """Records the ops dispatched inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def test_segment_copies_only_inputs_at_a_new_address(monkeypatch):
+    monkeypatch.setattr(step_graph, "WARMUP_STEPS", 0)
+    prog = step_graph.PhaseProgram("cpu", True, CountingCapture)
+    fixed = torch.ones(3)
+    prog.segment(("s",), lambda a, b: a + b, fixed, torch.zeros(3))
+    held = prog._segments[("s",)].ins
+    assert held[0].data_ptr() == fixed.data_ptr()
+    rec = _Ops()
+    with rec:
+        prog.segment(("s",), lambda a, b: a + b, fixed, held[1])
+    assert "copy_" not in rec.ops
+    new = torch.full((3,), 7.0)
+    rec = _Ops()
+    with rec:
+        prog.segment(("s",), lambda a, b: a + b, fixed, new)
+    assert rec.ops.count("copy_") == 1
+    assert held[1].data_ptr() != new.data_ptr()
+    assert torch.equal(held[1], new)
+    with pytest.raises(ValueError, match="shape"):
+        prog.segment(("s",), lambda a, b: a + b, fixed, torch.zeros(4))
+
+
+class _CountedBackward(torch.autograd.Function):
+    """A stand-in kernel whose backward launches twice (K2's count)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x * 3.0
+
+    @staticmethod
+    def backward(ctx, g):
+        chamfer_cuda.launches += 2
+        return g * 3.0
+
+
+def test_segment_launch_accounting(monkeypatch):
+    """K1 counted in a segment's forward, K2 in its backward: warm-up
+    calls count as the wrappers count them, the captures count nothing,
+    each replay of the forward and of the backward graph adds what one
+    call launched."""
+    monkeypatch.setattr(cand_cuda, "launches", 0)
+    monkeypatch.setattr(chamfer_cuda, "launches", 0)
+
+    def fn(x):
+        cand_cuda.launches += 1
+        return _CountedBackward.apply(x).sum()
+
+    prog = step_graph.PhaseProgram("cpu", True, CountingCapture)
+    x = torch.ones(3, requires_grad=True)
+    for n in range(1, 7):
+        prog.segment(("s",), fn, x).backward()
+        assert (cand_cuda.launches, chamfer_cuda.launches) == (n, 2 * n)
+    assert set(prog.capture_seconds) == {("s", "forward"),
+                                         ("s", "backward")}
+    # a call whose output is not differentiated replays no backward
+    with torch.no_grad():
+        prog.segment(("s",), fn, x)
+    assert (cand_cuda.launches, chamfer_cuda.launches) == (7, 12)
+
+
+def _local_collectives(monkeypatch):
+    """torch.distributed's all_gather and all_reduce answered in this
+    process for rank 0 of two frames ranks whose partner holds the same
+    values; each raises inside a captured step or segment."""
+    def all_gather(parts, x, group=None):
+        assert not GuardedCapture.active, "a collective inside a capture"
+        for p in parts:
+            p.copy_(x)
+
+    def all_reduce(x, group=None):
+        assert not GuardedCapture.active, "a collective inside a capture"
+        x.mul_(2.0)
+
+    monkeypatch.setattr(dist, "all_gather", all_gather)
+    monkeypatch.setattr(dist, "all_reduce", all_reduce)
+
+
+_FRAMES_GUARD = {
+    "local, lazy tables": (dict(), "local", {
+        "local_a": ("own", "adam", "cands"), "local_b": ("own", "adam"),
+        "skate": ("own", "adam")}),
+    "global, brute force": (dict(nn_impl="brute"), "global", {
+        "global_a": ("own", "adam"), "global_b": ("own", "adam")}),
+    "dct, joints gathered": (dict(), "dct", {
+        "dct_a": ("own", "adam"), "dct_b": ("own", "dct", "adam",
+                                             "cands")}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FRAMES_GUARD))
+def test_frames_rank_segments_never_sync(monkeypatch, case):
+    """A frames rank's whole fit (rank 0 of {clips: 1, frames: 2}) on
+    the graph route: the halo, the gathered joints and the gradient sum
+    run between the captures, every segment's forward and backward, the
+    Adam step and the refresh run under the sync guard, and every phase
+    captures the pieces its step is cut into."""
+    kw, mode, pieces = _FRAMES_GUARD[case]
+    _local_collectives(monkeypatch)
+    prob = _small(**kw)
+    made = _programmed(prob.solver, GuardedCapture)
+    GuardedCapture.captured = []
+    mesh = SH.Mesh({"clips": 1, "frames": 2}, 0, {"frames": None})
+    bodies, cams, scenes = fleet_batch(prob, 1)
+    _, hist = MultiClipSolver(solver=prob.solver, mesh=mesh).fit(
+        bodies, cams, scenes, mode=mode)
+    keys = set(made[0].capture_seconds)
+    for phase, names in pieces.items():
+        mine = {k[3:] for k in keys if k[0] == phase}
+        want = {(n, d) for n in names if n not in ("adam", "cands")
+                for d in ("forward", "backward")}
+        want |= {(n,) for n in names if n in ("adam", "cands")}
+        assert mine == want, phase
+    assert len(GuardedCapture.captured) == len(keys)
+    assert all(np.all(np.isfinite(v)) for v in hist.values())
+
+
 # -- on the card -------------------------------------------------------------------
 
 @pytest.fixture
@@ -418,3 +635,33 @@ def test_graph_route_matches_eager_on_the_card(cuda_device, mode, nn_impl):
     for k in he:
         rel = np.abs(hg[k] - he[k]) / np.abs(he[k])
         assert np.all(np.isfinite(hg[k])) and rel.max() < 2e-2, k
+
+
+@pytest.mark.gpu
+def test_segment_graph_matches_eager_on_the_card(cuda_device):
+    """Two segments chained through an eager op (cuBLAS in both), 6 steps
+    on a new input each: the captured forward and backward graphs give
+    the eager route's bits."""
+    def run(graphs):
+        prog = step_graph.PhaseProgram(cuda_device, graphs)
+        rng = np.random.RandomState(0)
+        w = torch.tensor(rng.randn(64, 64).astype(np.float32),
+                         device=cuda_device, requires_grad=True)
+        out = []
+        for _ in range(6):
+            x = torch.tensor(rng.randn(256, 64).astype(np.float32),
+                             device=cuda_device, requires_grad=True)
+            loss = _chain(prog, x * 1.0, w)
+            w.grad = None
+            loss.sum().backward()
+            out.append([t.detach().clone() for t in (loss, x.grad, w.grad)])
+            with torch.no_grad():
+                w -= 0.01 * w.grad
+        torch.cuda.synchronize()
+        return out, dict(prog.capture_seconds)
+
+    (eager, none), (graph, caps) = run(False), run(True)
+    assert not none and len(caps) == 4
+    for a, b in zip(graph, eager):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)

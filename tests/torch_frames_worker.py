@@ -15,9 +15,11 @@ from fpv4d_torch.ops import contact
 from fpv4d_torch.ops import sdf as SDF
 from fpv4d_torch.parallel import sharding as SH
 from fpv4d_torch.parallel.multi_clip import MultiClipSolver, pad_scenes
+from fpv4d_torch.solve import step_graph
 from fpv4d_torch.solve.clip_solve import ClipSolver
 from fpv4d_torch.solve.keypoint_fit import fit_keypoints
 from fpv4d_torch.utils.bench_problem import keypoint_problem
+from test_torch_step_graph import RerunCapture
 
 V, C, WINDOW = 256, 4, 4
 
@@ -30,6 +32,24 @@ CASES = {"aligned_local": (8, "local", "grid", False),
          "aligned_sdf": (8, "global", "grid", True),
          "straddle_dct": (12, "dct", "grid", False),
          "straddle_local": (12, "local", "grid", False)}
+
+# the cases also fitted on the graph route, its capture stood in for
+# (RerunCapture: each replay reruns the captured piece): the segments,
+# their warm-up, capture and replays, the Adam step's graph and the
+# captured refreshes, against the eager route's bits
+GRAPH_CASES = ("aligned_local", "aligned_global", "straddle_dct")
+
+
+def problem_phases(mode: str):
+    """The histories a fit in `mode` returns."""
+    return {"local": ("local_a", "local_b", "local_skate"),
+            "global": ("global_a", "global_b"),
+            "dct": ("dct_a", "dct_b")}[mode]
+
+
+def stand_in_program() -> step_graph.PhaseProgram:
+    """A graph-route phase program on the CPU, its capture stood in for."""
+    return step_graph.PhaseProgram("cpu", True, RerunCapture)
 
 
 def problem(T: int, nn_impl: str = "grid", sdf: bool = False,
@@ -80,9 +100,11 @@ def reference_solver(ref):
         device="cpu")
 
 
-def _local_a_steps(mesh, ref, num_steps: int = 2) -> np.ndarray:
+def _local_a_steps(mesh, ref, num_steps: int = 2,
+                   program=None) -> np.ndarray:
     """num_steps local_a steps of the JAX test's batch on the frames
-    axis -> the whole body_6d [1, T, 78]."""
+    axis through `program` (eager without one) -> the whole body_6d
+    [1, T, 78]."""
     solver = reference_solver(ref)
     mc = MultiClipSolver(solver=solver, mesh=mesh)
     state_b, target_b, weights_b = mc.init_batch(ref["bodies"], ref["cams"])
@@ -93,31 +115,44 @@ def _local_a_steps(mesh, ref, num_steps: int = 2) -> np.ndarray:
     SH.run_phase(solver, "local_a", st, opt, target_b[:, own],
                  weights_b[:, own], num_steps,
                  scenes_b=torch.as_tensor(pad_scenes([ref["scene"]])),
-                 shard=shard)
+                 shard=shard, program=program)
     return shard.join_state(st).body_6d.detach().numpy()
 
 
 def run_frames(rank: int, init_file: str, out_dir: str):
-    """2 ranks, {'clips': 1, 'frames': 2}: the JAX test's local_a steps,
-    every case of CASES, then multiopt with its default mesh (1 clip:
-    rank 1 is outside it) and with --mesh clips=1,frames=2."""
+    """2 ranks, {'clips': 1, 'frames': 2}: the JAX test's local_a steps
+    (eager and on the stand-in graph route), every case of CASES (those
+    of GRAPH_CASES on both routes), then multiopt with its default mesh
+    (1 clip: rank 1 is outside it) and with --mesh clips=1,frames=2."""
     torch.set_num_threads(1)
     SH.maybe_initialize_distributed(init_method=f"file://{init_file}",
                                     world_size=2, rank=rank, device="cpu")
     mesh = SH.make_mesh({"clips": 1, "frames": 2})
     assert SH.frame_range(mesh, 8) == (4 * rank, 4 * rank + 4)
-    out = {"local_a": _local_a_steps(
-        mesh, np.load(os.path.join(out_dir, "reference.npz")))}
+    ref = np.load(os.path.join(out_dir, "reference.npz"))
+    out = {"local_a": _local_a_steps(mesh, ref)}
+    # no warm-up: the reference's two steps are a capture and a replay
+    warmup, step_graph.WARMUP_STEPS = step_graph.WARMUP_STEPS, 0
+    try:
+        out["local_a_graph"] = _local_a_steps(mesh, ref,
+                                              program=stand_in_program())
+    finally:
+        step_graph.WARMUP_STEPS = warmup
     for name, (T, mode, nn_impl, sdf) in CASES.items():
         solver, bodies, cams, scenes = problem(T, nn_impl, sdf)
         mc = MultiClipSolver(solver=solver, mesh=mesh)
-        state_b, hist = mc.fit(bodies, cams, scenes, mode=mode)
-        for k, v in state_b._asdict().items():
-            out[f"{name}/{k}"] = v.numpy()
-        for k, v in hist.items():
-            out[f"{name}/hist_{k}"] = v
-        out[f"{name}/spread"] = np.asarray(
-            [mc.whole_leaf_spread[k] for k in hist])
+        for route in ("", "graph/")[:1 + (name in GRAPH_CASES)]:
+            if route:
+                solver.program = stand_in_program
+            state_b, hist = mc.fit(bodies, cams, scenes, mode=mode)
+            for k, v in state_b._asdict().items():
+                out[f"{name}/{route}{k}"] = v.numpy()
+            for k, v in hist.items():
+                out[f"{name}/{route}hist_{k}"] = v
+            out[f"{name}/{route}spread"] = np.asarray(
+                [mc.whole_leaf_spread[k] for k in hist])
+            out[f"{name}/{route}captures"] = np.asarray(
+                sorted(map(repr, mc.capture_seconds_by_key)))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     from fpv4d_torch.cli.multiopt import main
     args = [os.path.join(out_dir, "clipA"), "--mode", "global", "--iters",
