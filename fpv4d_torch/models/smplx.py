@@ -22,6 +22,7 @@ from torch import nn
 
 from fpv4d_torch.core.rotations import aa_to_matrot
 from fpv4d_torch.models import fk
+from fpv4d_torch.utils import observability as OBS
 
 NUM_JOINTS = 55
 NUM_BODY_JOINTS = 21
@@ -211,6 +212,14 @@ class SmplxModel(nn.Module):
         when pruned — full_pose [B,55,3] and v_shaped."""
         B = betas.shape[0]
         dev, dtype = self.v_template.device, self.v_template.dtype
+        # the blend section: the pose's rotations, shape and pose
+        # blendshapes, rest joints (utils/observability.py marks)
+        (betas, global_orient, body_pose, body_pose_matrot,
+         global_orient_matrot, left_hand_pose, right_hand_pose, jaw_pose,
+         leye_pose, reye_pose, expression) = OBS.mark("blend", (
+             betas, global_orient, body_pose, body_pose_matrot,
+             global_orient_matrot, left_hand_pose, right_hand_pose,
+             jaw_pose, leye_pose, reye_pose, expression))
         zeros3 = torch.zeros(B, 3, dtype=dtype, device=dev)
         jaw_pose = zeros3 if jaw_pose is None else jaw_pose
         leye_pose = zeros3 if leye_pose is None else leye_pose
@@ -278,8 +287,11 @@ class SmplxModel(nn.Module):
         # one merged matmul applies shape AND pose blendshapes
         feat = torch.cat([shape_feat, pose_feat], dim=-1)
         v_posed = template + (feat @ tab["table"]).reshape(B, -1, 3)
+        j_rest, v_posed, rot_mats = OBS.mark("blend", (j_rest, v_posed,
+                                                       rot_mats), end=True)
 
         # 4. forward kinematics (pruned to the ancestor-closed support)
+        rot_mats, j_rest = OBS.mark("fk", (rot_mats, j_rest))
         if tab["kept"] is not None:
             kept = tab["kept"]
             joints_k, rel_k = batch_rigid_transform(
@@ -292,8 +304,11 @@ class SmplxModel(nn.Module):
             joints_world, rel_transforms = batch_rigid_transform(
                 rot_mats, j_rest, PARENTS)
             A = rel_transforms[..., :3, :].reshape(B, NUM_JOINTS, 12)
+        A, joints_world = OBS.mark("fk", (A, joints_world), end=True)
 
         # 5. linear blend skinning (3x4 blended affine per vertex)
+        A, v_posed, joints_world, transl = OBS.mark(
+            "skin", (A, v_posed, joints_world, transl))
         Tm = torch.matmul(tab["lbs_weights"], A).reshape(B, -1, 3, 4)
         v_homo = torch.cat([v_posed, torch.ones_like(v_posed[..., :1])],
                            dim=-1)
@@ -301,6 +316,8 @@ class SmplxModel(nn.Module):
         if transl is not None:
             verts = verts + transl[:, None, :]
             joints_world = joints_world + transl[:, None, :]
+        verts, joints_world = OBS.mark("skin", (verts, joints_world),
+                                       end=True)
         return {"vertices": verts, "joints": joints_world,
                 "full_pose": full_pose, "v_shaped": v_shaped}
 

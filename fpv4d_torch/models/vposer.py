@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from fpv4d_torch.core.rotations import rot6d_to_aa, rot6d_to_matrot
+from fpv4d_torch.utils import observability as OBS
 
 LATENT_DIM = 32
 HIDDEN_DIM = 512
@@ -70,15 +71,17 @@ def _leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
 def decode(params: Dict[str, torch.Tensor], latent: torch.Tensor,
            output_type: str = "aa") -> torch.Tensor:
     """latent [..., 32] -> body pose: 'aa' [..., 63] or 'matrot'
-    [..., 21, 3, 3]."""
+    [..., 21, 3, 3] (the vposer section of utils/observability.py)."""
+    latent = OBS.mark("vposer", latent)
     h = _leaky_relu(latent @ params["w1"] + params["b1"], 0.2)
     h = _leaky_relu(h @ params["w2"] + params["b2"], 0.2)
     r6 = h @ params["w3"] + params["b3"]
     r6 = r6.reshape(r6.shape[:-1] + (NUM_JOINTS, 6))
     if output_type == "matrot":
-        return rot6d_to_matrot(r6)
+        return OBS.mark("vposer", rot6d_to_matrot(r6), end=True)
     aa = rot6d_to_aa(r6)
-    return aa.reshape(aa.shape[:-2] + (NUM_JOINTS * 3,))
+    return OBS.mark("vposer", aa.reshape(aa.shape[:-2] + (NUM_JOINTS * 3,)),
+                    end=True)
 
 
 def latent_prior_loss(latent: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from fpv4d_torch.utils import observability as OBS
+
 
 class Adam:
     """optax.adam over a fixed list of leaf tensors. ``mu``, ``nu`` and
@@ -53,27 +55,32 @@ class Adam:
 
     @torch.no_grad()
     def zero_grad(self) -> None:
-        """Every leaf's gradient set to 0 in place."""
-        torch._foreach_zero_([p.grad for p in self.params])
+        """Every leaf's gradient set to 0 in place (an adam section of
+        utils/observability.py)."""
+        with OBS.section("adam", self.count.device):
+            torch._foreach_zero_([p.grad for p in self.params])
 
     @torch.no_grad()
     def step(self) -> None:
-        g = [p.grad for p in self.params]
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(g, 1 - self.b1))
-        g2 = torch._foreach_mul(g, g)
-        torch._foreach_mul_(g2, 1 - self.b2)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_add_(self.nu, g2)
-        self.count.add_(1)
-        bc1 = 1 - torch.pow(self.b1, self.count)
-        bc2 = 1 - torch.pow(self.b2, self.count)
-        den = torch._foreach_div(self.nu, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(torch._foreach_div(self.mu, bc1), den)
-        torch._foreach_mul_(upd, -self.lr)
-        torch._foreach_add_(self.params, upd)
+        """One step of every leaf (an adam section of
+        utils/observability.py)."""
+        with OBS.section("adam", self.count.device):
+            g = [p.grad for p in self.params]
+            torch._foreach_mul_(self.mu, self.b1)
+            torch._foreach_add_(self.mu, torch._foreach_mul(g, 1 - self.b1))
+            g2 = torch._foreach_mul(g, g)
+            torch._foreach_mul_(g2, 1 - self.b2)
+            torch._foreach_mul_(self.nu, self.b2)
+            torch._foreach_add_(self.nu, g2)
+            self.count.add_(1)
+            bc1 = 1 - torch.pow(self.b1, self.count)
+            bc2 = 1 - torch.pow(self.b2, self.count)
+            den = torch._foreach_div(self.nu, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self.eps)
+            upd = torch._foreach_div(torch._foreach_div(self.mu, bc1), den)
+            torch._foreach_mul_(upd, -self.lr)
+            torch._foreach_add_(self.params, upd)
 
     def select(self, sl: slice) -> "Adam":
         """An Adam over rows `sl` of every leaf's leading axis (a fleet's

@@ -63,6 +63,7 @@ from fpv4d_torch.ops import nn as NN
 from fpv4d_torch.ops import sdf as SDF
 from fpv4d_torch.solve import step_graph
 from fpv4d_torch.solve.adam import Adam
+from fpv4d_torch.utils import observability as OBS
 from fpv4d_torch.utils.checkpoint import save_solver_state
 
 NN_IMPLS = ("grid", "brute")
@@ -158,14 +159,16 @@ def forward_world(ctx: Ctx, state: ClipState, vertex_subset=None,
         joints = (ctx.model(**common, vertex_subset=_DUMMY_VERT,
                             joint_subset=_BODY_JOINTS)["joints"]
                   if with_joints else None)
-    s = state.scale
+    verts, joints, s, cam_ext, cam_t = OBS.mark("skin", (
+        verts, joints if with_joints else None, state.scale,
+        state.camera_ext, d["camera_translation"]))
     s_t = s[:, None] if s.ndim else s
     s_v = s[:, None, None] if s.ndim else s
-    b2w = transforms.body2world(state.camera_ext, d["camera_translation"],
-                                s_t)
+    b2w = transforms.body2world(cam_ext, cam_t, s_t)
     verts_w = transforms.transform_points(verts * s_v, b2w)
     joints_w = (transforms.transform_points(joints[:, :23], b2w)
                 if with_joints else None)
+    verts_w, joints_w = OBS.mark("skin", (verts_w, joints_w), end=True)
     return verts_w, joints_w, {"latent": latent}
 
 
@@ -274,6 +277,9 @@ class ClipSolver:
         self.phase_seconds: Dict[str, float] = {}
         # host seconds of each phase's graph captures in the last fit
         self.capture_seconds: Dict[str, float] = {}
+        # the last fit's trace counters (utils/observability.py; empty
+        # with tracing off)
+        self.trace_counts: Dict[str, int] = {}
 
         # anti-skate vertex set: stratified sample + both feet
         n_sub = config.skate_subset
@@ -329,10 +335,29 @@ class ClipSolver:
             return NN.grid_min_dist(self.grid, pts)
         return NN.nn_brute(pts, self.scene)[0]
 
+    def _contact(self, verts_w: torch.Tensor,
+                 cands: Optional[NN.FrameCands]) -> torch.Tensor:
+        """The weighted robust contact term of the NN distances (the
+        contact section)."""
+        verts_w = OBS.mark("contact", verts_w)
+        contact = self.config.weights.contact * losses.robust_contact(
+            self._nn(verts_w, cands))
+        return OBS.mark("contact", contact, end=True)
+
     def _collision(self, verts_w: torch.Tensor,
                    sdf_lin: Optional[SDF.SdfLin]) -> torch.Tensor:
-        return self.config.weights.collision * SDF.collision_penalty(
-            verts_w, sdf_lin)
+        verts_w = OBS.mark("losses", verts_w)
+        return OBS.mark("losses", self.config.weights.collision
+                        * SDF.collision_penalty(verts_w, sdf_lin), end=True)
+
+    @staticmethod
+    def _rec_smooth(w, target_6d, body_6d, frame_weights):
+        """The weighted reconstruction term and the second-order
+        smoothness of the body sequence (a losses section)."""
+        body_6d = OBS.mark("losses", body_6d)
+        rec = w.rec * losses.rec_l1(target_6d, body_6d, frame_weights)
+        smooth = losses.second_order_smoothness(body_6d)
+        return OBS.mark("losses", (rec, smooth), end=True)
 
     # -- objectives ----------------------------------------------------------
 
@@ -375,12 +400,15 @@ class ClipSolver:
                                       vertex_subset=self._skate_vids,
                                       prune=self._skate_prune,
                                       with_joints=False)
-        rec = w.rec * losses.rec_l1(target_6d, state.body_6d, frame_weights)
-        local_smooth = losses.second_order_smoothness(state.body_6d)
+        rec, local_smooth = self._rec_smooth(w, target_6d, state.body_6d,
+                                             frame_weights)
+        verts_w = OBS.mark("losses", verts_w)
         vert_smooth = losses.second_order_smoothness(verts_w)
         skate = losses.foot_skate(verts_w[:, self._skate_left],
                                   verts_w[:, self._skate_right],
                                   weight_right)
+        vert_smooth, skate = OBS.mark("losses", (vert_smooth, skate),
+                                      end=True)
         return rec, local_smooth, vert_smooth, skate
 
     def phase_loss(self, phase: str, state: ClipState, target_6d,
@@ -391,8 +419,8 @@ class ClipSolver:
         the contact term when a linearized SDF is given."""
         cfg = self.config
         w = cfg.weights
-        rec = w.rec * losses.rec_l1(target_6d, state.body_6d, frame_weights)
-        smooth = losses.second_order_smoothness(state.body_6d)
+        rec, smooth = self._rec_smooth(w, target_6d, state.body_6d,
+                                       frame_weights)
         if phase == "local_b":
             return rec + smooth * cfg.phase_b_smooth_mult
         if phase == "global_b":
@@ -400,15 +428,16 @@ class ClipSolver:
             _, joints_w, _ = forward_world(
                 self.ctx, state, vertex_subset=self.contact_vids,
                 prune=self._contact_prune, merge_joints=True)
-            return (rec + losses.first_order_smoothness(joints_w)
-                    + smooth * cfg.phase_b_smooth_mult)
+            joints_w = OBS.mark("losses", joints_w)
+            world = OBS.mark("losses", losses.first_order_smoothness(
+                joints_w), end=True)
+            return rec + world + smooth * cfg.phase_b_smooth_mult
         if phase == "dct_a":
             # the generic form; fit() runs dct_a with the joints hoisted
             _, joints_w, _ = forward_world(
                 self.ctx, state, vertex_subset=self.contact_vids,
                 prune=self._contact_prune)
-            return losses.dct_trajectory(joints_w, state.c_dct,
-                                         cfg.window) * cfg.dct_mult
+            return self.dct_a_loss(joints_w, state)
         if phase in ("local_a", "global_a"):
             # verts only: the body-subtree joints FK and the DCT term
             # are not read
@@ -417,17 +446,17 @@ class ClipSolver:
                 prune=self._contact_prune, with_joints=False)
             mult = (cfg.local_contact_mult if phase == "local_a"
                     else cfg.global_contact_mult)
-            contact = w.contact * losses.robust_contact(
-                self._nn(verts_w, cands))
+            contact = self._contact(verts_w, cands)
             loss = contact * mult + smooth + rec
         elif phase == "dct_b":
             # verts and joints from one merged body-subtree call
             verts_w, joints_w, _ = forward_world(
                 self.ctx, state, vertex_subset=self.contact_vids,
                 prune=self._contact_prune, merge_joints=True)
-            dct = losses.dct_trajectory(joints_w, state.c_dct, cfg.window)
-            contact = w.contact * losses.robust_contact(
-                self._nn(verts_w, cands))
+            joints_w, c_dct = OBS.mark("losses", (joints_w, state.c_dct))
+            dct = OBS.mark("losses", losses.dct_trajectory(
+                joints_w, c_dct, cfg.window), end=True)
+            contact = self._contact(verts_w, cands)
             loss = dct * 1e-4 + rec * 0.5 + contact * 0.1
         else:
             raise ValueError(f"unknown phase {phase!r}")
@@ -467,11 +496,13 @@ class ClipSolver:
             prune=self._contact_prune, with_joints=False)
         P_out = self.config.contact_compact
         budget = self.config.contact_cell_budget
-        if not P_out or P_out >= budget * self.grid.cand_pts.shape[1]:
-            return NN.frame_candidates(self.grid, verts_w, budget, out=out)
-        return NN.compact_candidates(
-            verts_w, NN.frame_candidates(self.grid, verts_w, budget), P_out,
-            out=out)
+        with OBS.section("refresh", self.device):
+            if not P_out or P_out >= budget * self.grid.cand_pts.shape[1]:
+                return NN.frame_candidates(self.grid, verts_w, budget,
+                                           out=out)
+            return NN.compact_candidates(
+                verts_w, NN.frame_candidates(self.grid, verts_w, budget),
+                P_out, out=out)
 
     @torch.no_grad()
     def _refresh_sdf(self, state: ClipState,
@@ -493,9 +524,11 @@ class ClipSolver:
                                       vertex_subset=self._feet_vids,
                                       prune=self._feet_prune,
                                       with_joints=False)
+        verts_w = OBS.mark("contact", verts_w)
         d_l = torch.mean(self._nn(verts_w[:, :n_left]), dim=1)
         d_r = torch.mean(self._nn(verts_w[:, n_left:]), dim=1)
-        return losses.planted_foot_weight(d_l, d_r)
+        return OBS.mark("contact", losses.planted_foot_weight(d_l, d_r),
+                        end=True)
 
     # -- init ----------------------------------------------------------------
 
@@ -620,8 +653,10 @@ class ClipSolver:
     def dct_a_loss(self, joints_w: torch.Tensor, state: ClipState
                    ) -> torch.Tensor:
         """dct_a's step: the DCT residual of c_dct on hoisted joints."""
-        return losses.dct_trajectory(joints_w, state.c_dct,
-                                     self.config.window) * self.config.dct_mult
+        joints_w, c_dct = OBS.mark("losses", (joints_w, state.c_dct))
+        return OBS.mark("losses", losses.dct_trajectory(
+            joints_w, c_dct, self.config.window) * self.config.dct_mult,
+            end=True)
 
     def _run_dct_only_phase(self, state, opt, num_steps: int,
                             program: Optional[step_graph.PhaseProgram] = None
@@ -708,16 +743,37 @@ class ClipSolver:
         Returns the final state and the per-step loss history of each
         phase; the wall seconds of each stage land in
         ``self.phase_seconds``, the seconds of each phase's graph
-        captures (inside its stage's) in ``self.capture_seconds``."""
+        captures (inside its stage's) in ``self.capture_seconds``.
+
+        With tracing on (utils/observability.py) the fit is a span
+        ``fit`` holding a span ``phase/<stage>`` for each stage of
+        ``phase_seconds`` and ``checkpoint`` for each checkpoint; the
+        counters are reset at its start and kept in
+        ``self.trace_counts`` after it, with ``device_allocs``, the
+        allocator's device allocations during the fit, on a card."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}: one of {MODES}")
-        program = self.program()
-        try:
-            return self._fit(body_75, camera_ext, mode, verbose,
-                             checkpoint_dir, program)
-        finally:
-            self.capture_seconds = capture_seconds(program)
-            program.close()
+        OBS.reset_counts()
+        allocs = self._device_allocs()
+        with OBS.span("fit"):
+            program = self.program()
+            try:
+                return self._fit(body_75, camera_ext, mode, verbose,
+                                 checkpoint_dir, program)
+            finally:
+                self.capture_seconds = capture_seconds(program)
+                program.close()
+                if allocs is not None:
+                    OBS.count("device_allocs",
+                              self._device_allocs() - allocs)
+                self.trace_counts = OBS.counts()
+
+    def _device_allocs(self) -> Optional[int]:
+        """The allocator's device allocations so far, read with tracing on
+        and on a card only (else None)."""
+        if not (OBS.spans_on and self.device.type == "cuda"):
+            return None
+        return torch.cuda.memory_stats(self.device)["num_device_alloc"]
 
     def _fit(self, body_75, camera_ext, mode, verbose, checkpoint_dir,
              program):
@@ -727,9 +783,10 @@ class ClipSolver:
 
         def timed(name, fn):
             t0 = time.perf_counter()
-            out = fn()
-            if isinstance(out, torch.Tensor):
-                out = out.cpu()          # waits for the device
+            with OBS.span(f"phase/{name}"):
+                out = fn()
+                if isinstance(out, torch.Tensor):
+                    out = out.cpu()          # waits for the device
             self.phase_seconds[name] = time.perf_counter() - t0
             return out
 
@@ -742,9 +799,10 @@ class ClipSolver:
 
         def ckpt(name):
             if checkpoint_dir:
-                save_solver_state(
-                    os.path.join(checkpoint_dir, f"{name}.pt"), state, opt,
-                    step=sum(len(v) for v in hist.values()))
+                with OBS.span("checkpoint"):
+                    save_solver_state(
+                        os.path.join(checkpoint_dir, f"{name}.pt"), state,
+                        opt, step=sum(len(v) for v in hist.values()))
 
         def phase(name, num_steps):
             hist[name] = timed(name, lambda: self._run_phase_auto(

@@ -88,6 +88,11 @@ where their wrappers run, which a replay does not: the program takes
 back what the wrappers counted while the step was being captured (the
 capture launches nothing) and adds, for each replay, the launches one
 captured step holds.
+
+With tracing on (utils/observability.py) a capture is a span
+``capture/<phase>``, a refresh a span ``refresh/<phase>`` and a ``call``'s
+eager warm-up a span ``warmup/<phase>`` (the key's first element), and
+each replay of a ``call`` adds one to the counter ``replays/<phase>``.
 """
 from __future__ import annotations
 
@@ -97,6 +102,7 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence
 import torch
 
 from fpv4d_torch.ops import cand_cuda, chamfer_cuda
+from fpv4d_torch.utils import observability as OBS
 
 # eager steps of a key before its capture (cuBLAS handles and
 # workspaces, the model's per-subset tables and the DCT basis are made
@@ -329,8 +335,11 @@ class PhaseProgram:
             warm = self._warm.get(key, 0)
             if warm < WARMUP_STEPS:
                 self._warm[key] = warm + 1
-                return self._side(fn)
+                with OBS.span(f"warmup/{key[0]}"):
+                    return self._side(fn)
             captured = self._capture(key, fn)
+        if OBS.spans_on:
+            OBS.count(f"replays/{key[0]}")
         return self._replay(captured)
 
     def segment(self, key: Hashable, fn: Callable, *inputs: torch.Tensor):
@@ -370,16 +379,17 @@ class PhaseProgram:
         captures fn(copies) and replays it; every later call replays.
         Returns the captured function's outputs: the kept copies where
         fn writes into `out`, which ``stage`` then does not copy."""
-        if not self.graphs:
-            return fn(None)
-        captured = self._steps.get(key)
-        if captured is None:
-            with torch.no_grad():
-                held = tuple(t.detach().clone()
-                             for t in self._side(lambda: fn(None)))
-            self._static[key] = held
-            captured = self._capture(key, lambda: fn(held))
-        return self._replay(captured)
+        with OBS.span(f"refresh/{key[0]}"):
+            if not self.graphs:
+                return fn(None)
+            captured = self._steps.get(key)
+            if captured is None:
+                with torch.no_grad():
+                    held = tuple(t.detach().clone()
+                                 for t in self._side(lambda: fn(None)))
+                self._static[key] = held
+                captured = self._capture(key, lambda: fn(held))
+            return self._replay(captured)
 
     def gate(self, pred: torch.Tensor) -> bool:
         """Whether a gated piece (a line-search round, a re-evaluation)
@@ -413,7 +423,8 @@ class PhaseProgram:
     def _capture(self, key: Hashable, step: Callable):
         t0 = time.perf_counter()
         before = _counts()
-        graph = self._make_graph(step, self.pool, self.stream)
+        with OBS.span(f"capture/{key[0]}"):
+            graph = self._make_graph(step, self.pool, self.stream)
         per_step = [a - b for a, b in zip(_counts(), before)]
         for m, n in zip(COUNTED, before):
             m.launches = n
