@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each fatal on failure:
   1. device     the card's name and power limit (nvidia-smi);
   2. build      K1 (csrc/cand_nn.cu) and K2 (csrc/chamfer_nn.cu), both
-                with csrc/gram_nn.cuh, one nvcc each, started together;
+                with csrc/gram_nn.cuh, and the skinning pair
+                (csrc/lbs_skin.cu), one nvcc each, started together;
                 ptxas' register and spill lines;
   3. K1         the kernel held bit-exactly against its plain PyTorch
                 version on the standard problem's candidate tables
@@ -28,10 +29,23 @@ Phases, each fatal on failure:
                 (torch.cdist + min over 8,192-query chunks) times, the
                 share of the bound, and the re-checks per query (main
                 shape and far queries);
+  4b. skin     the skinning pair (csrc/lbs_skin.cu) on the standard
+                model's tables at the clip solve's shapes: the full
+                mesh [300, 10,475] (55 joints), the contact set pruned
+                to the legs [900, 813] and [300, 813], the skate subset
+                [900, 1,608]: forward and every gradient held to the
+                plain version (the former chain: lbs_weights @ A and
+                the per-vertex einsum) within f32 summation order, two
+                runs bit-equal, the share of bit-equal coordinates; ms
+                of the pair and of the plain version, forward and
+                backward, against the bytes bound (the result line's
+                `launches` of the pair are phases 5-7's);
   5. local      the full-size standard local-mode clip solve (T=900,
                 V=10,475, 100,489 scene points, compact 192, skate 1024
                 body-only): finite, decreasing per-phase losses; K1
-                launched once per local_a step, K2 never;
+                launched once per local_a step, K2 never; the skinning
+                pair at least twice (forward, backward) per contact
+                step, here and in every fit below;
   6. global     the full-size global solve with brute-force contact NN
                 (nn_impl='brute'): K2 launched once per global_a step,
                 K1 never; then with the grid: K1 once per global_a step;
@@ -344,22 +358,28 @@ def _sphere(centre, n, dev):
 
 
 def _reset_counts(C, K):
+    from fpv4d_torch.ops import skin_cuda as S
     torch.cuda.synchronize()
     C.launches = 0
     K.launches = 0
+    S.launches = 0
 
 
 def _run_fit(solver, prob, mode, C, K, expect, label):
-    """Drive fit(mode) with both counts at 0; check finite, decreasing
-    per-phase losses and the launches of each kernel. Returns
-    (K1 launches, K2 launches, fit seconds, loss histories, (body [T,
-    75], scale, camera_ext [T, 4, 4]) as solved)."""
+    """Drive fit(mode) with the counts at 0; check finite, decreasing
+    per-phase losses and the launches of each kernel: K1 and K2 as
+    expected, and the skinning pair at least twice per contact step (a
+    forward and a backward). Returns (K1 launches, K2 launches, fit
+    seconds, loss histories, (body [T, 75], scale, camera_ext [T, 4, 4])
+    as solved, the skinning pair's launches)."""
+    from fpv4d_torch.ops import skin_cuda as S
     _reset_counts(C, K)
     t0 = time.perf_counter()
     final, hist = solver.fit(prob.body, prob.cam, mode=mode)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     got = (C.launches, K.launches)
+    n_skin = S.launches
     for k, v in hist.items():
         print(f"[{label}] {k}: {len(v)} steps, loss {v[0]:.6f} -> "
               f"{v[-1]:.6f}, {solver.phase_seconds[k]:.3f} s", flush=True)
@@ -371,9 +391,14 @@ def _run_fit(solver, prob, mode, C, K, expect, label):
               if k not in hist}
     print(f"[{label}] other stages (s): {others}; fit total {fit_s:.3f} s; "
           f"K1 launches {got[0]}, K2 launches {got[1]} (expected "
-          f"{expect[0]}, {expect[1]})", flush=True)
+          f"{expect[0]}, {expect[1]}); skinning pair launches {n_skin} "
+          f"(at least {2 * sum(expect)})", flush=True)
     if got != expect:
         raise AssertionError(f"{label}: launches {got}, expected {expect}")
+    if n_skin < max(1, 2 * sum(expect)):
+        raise AssertionError(f"{label}: the skinning pair launched "
+                             f"{n_skin} times, expected at least "
+                             f"{2 * sum(expect)}")
     T = prob.body.shape[0]
     body, scale, cam = solver.result_params(final)
     if body.shape != (T, 75) or cam.shape != (T, 4, 4) or not (
@@ -381,7 +406,7 @@ def _run_fit(solver, prob, mode, C, K, expect, label):
             and np.all(np.isfinite(cam))):
         raise AssertionError(f"{label}: final parameters not finite / "
                              "wrong shape")
-    return got[0], got[1], fit_s, hist, (body, scale, cam)
+    return got[0], got[1], fit_s, hist, (body, scale, cam), n_skin
 
 
 def _hold_histories(hg, hc, label, what="cuda vs cpu", watch=()):
@@ -1889,6 +1914,90 @@ def _pipeline_ends(tmp: Path):
 
 # -- the rest of the library and the ground-truth report -----------------------
 
+# the skinning pair's shapes on the clip solve's path: (label, frames,
+# the solver attribute naming the vertex subset and its prune; None for
+# the full mesh)
+SKIN_SHAPES = (("full mesh", 300, None),
+               ("contact, legs", 900, ("contact_vids", "_contact_prune")),
+               ("contact, legs", 300, ("contact_vids", "_contact_prune")),
+               ("skate subset", 900, ("_skate_vids", "_skate_prune")))
+
+
+def _skin_phase(prob, dev):
+    """Phase 4b: the skinning pair on the standard model's tables at each
+    of SKIN_SHAPES, with random joint transforms (near the identity) and
+    a translation: the forward and every gradient (A, transl, v_posed)
+    held to the plain version within f32 summation order (a few ulps of
+    each output's largest entry), two runs bit-equal, and the share of
+    output coordinates bit-equal to the plain version's; then ms of
+    forward + backward, the pair alone (skin_cuda_forward and
+    skin_cuda_backward) and the plain version, which is the library
+    chain the pair replaces (the per-vertex 3x4 GEMM and the batched
+    apply), beside the bytes bound. Returns the kernel entries of the
+    result line, whose `launches` main() fills from phases 5-7's fits."""
+    from fpv4d_torch.ops import skin_cuda as S
+    from fpv4d_torch.utils.cost import HBM_BPS
+    solver, model = prob.solver, prob.model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for label, B, attr in SKIN_SHAPES:
+        vids, prune = ((None, None) if attr is None else
+                       (getattr(solver, attr[0]), getattr(solver, attr[1])))
+        js, pjs = prune if prune is not None else (None, None)
+        table = model._tables(vids, js, pjs)["skin"]
+        V, J = table.weights.shape
+        gen = torch.Generator(device=dev).manual_seed(B + V)
+        A = torch.randn(B, J, 12, device=dev, generator=gen) * 0.1
+        A.view(B, J, 3, 4)[..., :3] += torch.eye(3, device=dev)
+        transl = torch.randn(B, 3, device=dev, generator=gen)
+        vp = torch.randn(B, V, 3, device=dev, generator=gen) * 0.5
+        g = torch.randn(B, V, 3, device=dev, generator=gen)
+        leaves = [t.clone().requires_grad_(True) for t in (A, transl, vp)]
+
+        def run(fn):
+            v = fn(*leaves)
+            return (v.detach(),) + torch.autograd.grad(v, leaves, g)
+
+        def kernel(a, t, v):
+            return S.skin(a, t, v, table)
+
+        def plain(a, t, v):
+            return S.skin_plain(a, t, v, table.weights)
+        got, ref, again = run(kernel), run(plain), run(kernel)
+        errs = [_grad_err(a, b) for a, b in zip(got, ref)]
+        if max(errs) > 2e-5 or not all(torch.equal(a, b)
+                                       for a, b in zip(got, again)):
+            raise AssertionError(f"skin {label} [{B}, {V}]: relative "
+                                 f"errors {errs} (out, dA, dtransl, dvp), "
+                                 f"or two runs differ")
+        same = float((got[0] == ref[0]).float().mean())
+
+        def pair():
+            S.skin_cuda_forward(A, transl, vp, table)
+            S.skin_cuda_backward(A, vp, g, table, True, True, True)
+        pair_ms = median_ms(pair)
+        plain_ms = median_ms(lambda: run(plain))
+        nbytes = B * V * 60 + 4 * (table.ell_j.numel() + table.ell_w.numel()
+                                   + table.vids.numel() + table.vw.numel())
+        bound_ms = nbytes / HBM_BPS * 1e3
+        print(f"[skin] {label} [{B}, {V}], {J} joints, K={table.K}: pair "
+              f"{pair_ms:.4f} ms, plain (the library chain) "
+              f"{plain_ms:.4f} ms, forward + backward; bound "
+              f"{bound_ms:.4f} ms (bytes), {bound_ms / pair_ms:.1%} of it; "
+              f"max relative errors {[f'{e:.2e}' for e in errs]}; "
+              f"{same:.4%} of the vertices' coordinates bit-equal",
+              flush=True)
+        out.append({"name": f"lbs_skin ({label}, [{B}, {V}])",
+                    "route": "cuda",
+                    "source": "fpv4d_torch/csrc/lbs_skin.cu",
+                    "replaces": "none (XLA's skinning)",
+                    "launches": None, "max_rel_err": max(errs),
+                    "ms": pair_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": "bytes",
+                    "library_ms": plain_ms, "bit_equal_share": same})
+    return out
+
+
 def _grad_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| over the largest |b| (tests/test_fk_vjp.py's rule)."""
     return float((a - b).abs().max() / (b.abs().max() + 1e-6))
@@ -1974,8 +2083,8 @@ def _fk_phase(prob, dev, state, C, K, n_a):
             fk.rigid_transform_prod = (fk.rigid_transform
                                        if name == "adjoint"
                                        else fk.rigid_transform_ref)
-            _, _, fit_s, hist, _ = _run_fit(solver, prob, "local", C, K,
-                                            (n_a, 0), f"local/FK {name}")
+            _, _, fit_s, hist, _, _ = _run_fit(
+                solver, prob, "local", C, K, (n_a, 0), f"local/FK {name}")
             fits[name].append((fit_s, dict(solver.phase_seconds), hist))
     finally:
         fk.rigid_transform_prod = saved
@@ -2572,6 +2681,7 @@ def main() -> int:
     from fpv4d_torch.ops import chamfer_cuda as K
     from fpv4d_torch.ops import cuda_build
     from fpv4d_torch.ops import nn as NN
+    from fpv4d_torch.ops import skin_cuda as S
     from fpv4d_torch.utils.bench_problem import standard_problem
 
     dev = torch.device("cuda")
@@ -2586,11 +2696,13 @@ def main() -> int:
     # 2. build: one compiler per source (nvcc for K1 and K2, the host
     # compiler for the grid builder), started together
     t0 = time.perf_counter()
-    logs = cuda_build.compile_sources([C.SRC, K.SRC, native.SRC,
+    logs = cuda_build.compile_sources([C.SRC, K.SRC, S.SRC, native.SRC,
                                        native.IO_SRC])
     C.build()
     K.build()
-    print(f"[build] K1, K2, the grid builder and the native io built in "
+    S.build()
+    print(f"[build] K1, K2, the skinning pair, the grid builder and the "
+          f"native io built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -2705,13 +2817,16 @@ def main() -> int:
     del q, x_odd, dup, x_eq, x_rand, sph
     torch.cuda.empty_cache()
 
+    # 4b. the skinning pair against its plain version
+    skin = _skin_phase(prob, dev)
+
     cfg = solver.config
     n_a = int(cfg.num_iter * cfg.stage_split)
     n_dct_b = cfg.num_iter_dct - int(cfg.num_iter_dct * cfg.dct_split)
 
     # 5. the local path (the main path of the first slice)
-    k1_launches, _, local_s, local_hist, local_solved = _run_fit(
-        solver, prob, "local", C, K, (n_a, 0), "local")
+    k1_launches, _, local_s, local_hist, local_solved, skin_launches = \
+        _run_fit(solver, prob, "local", C, K, (n_a, 0), "local")
     local_seconds = dict(solver.phase_seconds)
 
     # 6. global: brute-force contact NN (K2), then the grid (K1)
@@ -2720,14 +2835,19 @@ def main() -> int:
     print(f"[setup] brute-force standard problem in "
           f"{time.perf_counter() - t0:.2f} s (no voxel grid: "
           f"{prob_b.solver.grid is None})", flush=True)
-    _, k2_launches, _, _, _ = _run_fit(prob_b.solver, prob_b, "global", C,
-                                       K, (0, n_a), "global/brute")
+    _, k2_launches, _, _, _, n_skin = _run_fit(
+        prob_b.solver, prob_b, "global", C, K, (0, n_a), "global/brute")
+    skin_launches += n_skin
     del prob_b
     torch.cuda.empty_cache()
-    _run_fit(solver, prob, "global", C, K, (n_a, 0), "global/grid")
+    skin_launches += _run_fit(solver, prob, "global", C, K, (n_a, 0),
+                              "global/grid")[-1]
 
     # 7. dct with the grid, at full length
-    _run_fit(solver, prob, "dct", C, K, (n_dct_b, 0), "dct/grid")
+    skin_launches += _run_fit(solver, prob, "dct", C, K, (n_dct_b, 0),
+                              "dct/grid")[-1]
+    for entry in skin:
+        entry["launches"] = skin_launches
 
     # 8. small solves on the card agree with the same solves on the CPU
     for mode, nn_impl in (("local", "grid"), ("global", "brute"),
@@ -2838,7 +2958,7 @@ def main() -> int:
         entry("cand_nn (frames shard, 450 of 900 frames, per rank)", k1_src,
               k1_frames_launches, k1_frames),
         entry("chamfer_nn (frames shard, 450 of 900 frames, per rank)",
-              k2_src, k2_frames_launches, k2_frames)]}))
+              k2_src, k2_frames_launches, k2_frames)] + skin}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

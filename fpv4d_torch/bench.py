@@ -60,6 +60,7 @@ import torch
 from fpv4d_torch.ops import cand_cuda as C
 from fpv4d_torch.ops import chamfer_cuda as K
 from fpv4d_torch.ops import cuda_build
+from fpv4d_torch.ops import skin_cuda
 from fpv4d_torch.solve.clip_solve import ClipSolver, ClipState, forward_world
 from fpv4d_torch.utils import cost
 from fpv4d_torch.utils.bench_problem import keypoint_problem, standard_problem
@@ -412,9 +413,10 @@ class Bench:
         build_s = None
         if self.on_card:
             t0 = time.perf_counter()
-            cuda_build.compile_sources([C.SRC, K.SRC])
+            cuda_build.compile_sources([C.SRC, K.SRC, skin_cuda.SRC])
             C.build()
             K.build()
+            skin_cuda.build()
             build_s = time.perf_counter() - t0
         dt0, _, _ = self.fit("local", "first local")
         ex["kernel_build_s"] = build_s

@@ -22,6 +22,7 @@ from torch import nn
 
 from fpv4d_torch.core.rotations import aa_to_matrot
 from fpv4d_torch.models import fk
+from fpv4d_torch.ops import skin_cuda
 from fpv4d_torch.utils import observability as OBS
 
 NUM_JOINTS = 55
@@ -177,7 +178,7 @@ class SmplxModel(nn.Module):
                     for j in kept)
                 tab["kept"] = torch.as_tensor(kept, device=dev)
                 lbs_weights = lbs_weights[:, tab["kept"]]
-            tab["lbs_weights"] = lbs_weights.contiguous()
+            tab["skin"] = skin_cuda.skin_table(lbs_weights)
         self._cache[key] = tab
         return tab
 
@@ -306,15 +307,12 @@ class SmplxModel(nn.Module):
             A = rel_transforms[..., :3, :].reshape(B, NUM_JOINTS, 12)
         A, joints_world = OBS.mark("fk", (A, joints_world), end=True)
 
-        # 5. linear blend skinning (3x4 blended affine per vertex)
+        # 5. linear blend skinning (ops/skin_cuda.py: the kernel pair on
+        # the card, the 3x4 blended affine per vertex on the CPU)
         A, v_posed, joints_world, transl = OBS.mark(
             "skin", (A, v_posed, joints_world, transl))
-        Tm = torch.matmul(tab["lbs_weights"], A).reshape(B, -1, 3, 4)
-        v_homo = torch.cat([v_posed, torch.ones_like(v_posed[..., :1])],
-                           dim=-1)
-        verts = torch.einsum("bvpq,bvq->bvp", Tm, v_homo)
+        verts = skin_cuda.skin(A, transl, v_posed, tab["skin"])
         if transl is not None:
-            verts = verts + transl[:, None, :]
             joints_world = joints_world + transl[:, None, :]
         verts, joints_world = OBS.mark("skin", (verts, joints_world),
                                        end=True)

@@ -10,7 +10,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from fpv4d_torch.models.smplx import synthetic_vertex_bones
+# the module, not its function: models.smplx imports ops in turn
+from fpv4d_torch.models import smplx as SMPLX
 
 CLIP_SOLVE_PARTS = ("L_Leg", "R_Leg")
 ALL_PARTS = ("back", "butt", "gluteus", "L_Hand", "R_Hand", "L_Leg",
@@ -50,7 +51,7 @@ def synthetic_segments(num_verts: int, seed: int = 0,
     static FK pruning engages as on the real artifact. model_seed must
     equal the synthetic_model seed."""
     if coherent:
-        bones = synthetic_vertex_bones(num_verts, seed=model_seed)
+        bones = SMPLX.synthetic_vertex_bones(num_verts, seed=model_seed)
         rng = np.random.RandomState(seed)
         out = {}
         for part in parts:

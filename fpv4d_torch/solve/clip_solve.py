@@ -58,7 +58,8 @@ from fpv4d_torch.core import rotations, transforms
 from fpv4d_torch.models import params as P
 from fpv4d_torch.models import vposer as VP
 from fpv4d_torch.models.smplx import SmplxModel
-from fpv4d_torch.ops import losses
+from fpv4d_torch.ops import cand_cuda, chamfer_cuda, cuda_build, losses
+from fpv4d_torch.ops import skin_cuda
 from fpv4d_torch.ops import nn as NN
 from fpv4d_torch.ops import sdf as SDF
 from fpv4d_torch.solve import step_graph
@@ -251,6 +252,11 @@ class ClipSolver:
             raise ValueError(f"nn_impl={nn_impl!r}: one of {NN_IMPLS}")
         self.device = torch.device(device)
         self.step_graphs = step_graph.use_graphs(self.device, step_graphs)
+        if self.device.type == "cuda":
+            # the kernels a solve launches, their missing libraries
+            # compiled side by side (each loads at its first launch)
+            cuda_build.compile_sources([cand_cuda.SRC, chamfer_cuda.SRC,
+                                        skin_cuda.SRC])
         self.config = config
         self.nn_impl = nn_impl
         self.model = model.to(self.device)

@@ -96,12 +96,13 @@ each replay of a ``call`` adds one to the counter ``replays/<phase>``.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Hashable, List, Optional, Sequence
 
 import torch
 
-from fpv4d_torch.ops import cand_cuda, chamfer_cuda
+from fpv4d_torch.ops import cand_cuda, chamfer_cuda, skin_cuda
 from fpv4d_torch.utils import observability as OBS
 
 # eager steps of a key before its capture (cuBLAS handles and
@@ -110,7 +111,7 @@ from fpv4d_torch.utils import observability as OBS
 WARMUP_STEPS = 2
 
 # the modules whose `launches` counts a replay must advance
-COUNTED = (cand_cuda, chamfer_cuda)
+COUNTED = (cand_cuda, chamfer_cuda, skin_cuda)
 
 
 def _counts() -> List[int]:
@@ -124,8 +125,17 @@ class CudaGraphStep:
 
     def __init__(self, step: Callable[[], torch.Tensor], pool, stream):
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-            self.out = step()
+        # no garbage collection inside the capture: a collected cycle that
+        # holds an earlier program's graph resets it, and a reset while a
+        # stream captures invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                self.out = step()
+        finally:
+            if collecting:
+                gc.enable()
 
     def replay(self) -> None:
         self.graph.replay()

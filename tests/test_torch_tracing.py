@@ -14,7 +14,8 @@ capture whose replay reruns the step:
 * the counter ``replays/<phase>`` is the phase's steps less its warm-ups;
 * each section's forward marks come in begin/end pairs, and its
   backward marks in runs that open with a begin and close with an end,
-  one section's run never inside another's;
+  one section's run never inside another's, and a traced CPU solve
+  skins on the plain route only (``skin/plain``);
 * the marker kernels' source names the sections the module knows;
 * on the card (`gpu`), the graph route with spans and with marks
   bit-equal to tracing off, and the marks captured into the replays.
@@ -187,7 +188,10 @@ def test_marks_pair_per_section(case, untraced):
             runs.append(((sec, way), [edge]))
     for (sec, way), edges in runs:
         assert edges[0] == "begin" and edges[-1] == "end", (sec, way, edges)
-    assert any(way == "bwd" for (_, way), _ in runs)
+    assert ("skin", "bwd") in {key for key, _ in runs}
+    # a CPU solve skins on the plain route only
+    counts = prob.solver.trace_counts
+    assert counts.get("skin/plain", 0) > 0 and "skin/cuda" not in counts
 
 
 def test_mark_returns_its_input():
