@@ -8,7 +8,8 @@ Phases, each fatal on failure:
   1. device     the card's name and power limit (nvidia-smi);
   2. build      K1 (csrc/cand_nn.cu) and K2 (csrc/chamfer_nn.cu), both
                 with csrc/gram_nn.cuh, and the skinning pair
-                (csrc/lbs_skin.cu), one nvcc each, started together;
+                (csrc/lbs_skin.cu) and the Adam kernel
+                (csrc/adam_step.cu), one nvcc each, started together;
                 ptxas' register and spill lines;
   3. K1         the kernel held bit-exactly against its plain PyTorch
                 version on the standard problem's candidate tables
@@ -40,6 +41,14 @@ Phases, each fatal on failure:
                 of the pair and of the plain version, forward and
                 backward, against the bytes bound (the result line's
                 `launches` of the pair are phases 5-7's);
+  4c. adam     the Adam kernel (csrc/adam_step.cu) at dct-grid's four
+                leaves (T = 900) and at an 8-clip fleet's: 5 steps
+                bit-equal to the foreach route (solve/adam.py
+                foreach_step); ms a step of each over 50 steps, eager
+                and in one captured graph (CUDA-event medians), against
+                the bytes bound (32 bytes an element at 3.35 TB/s; the
+                result line's `launches` are phases 5-7's, through their
+                replays);
   5. local      the full-size standard local-mode clip solve (T=900,
                 V=10,475, 100,489 scene points, compact 192, skate 1024
                 body-only): finite, decreasing per-phase losses; K1
@@ -358,20 +367,24 @@ def _sphere(centre, n, dev):
 
 
 def _reset_counts(C, K):
+    from fpv4d_torch.ops import adam_cuda as AC
     from fpv4d_torch.ops import skin_cuda as S
     torch.cuda.synchronize()
     C.launches = 0
     K.launches = 0
     S.launches = 0
+    AC.launches = 0
 
 
 def _run_fit(solver, prob, mode, C, K, expect, label):
     """Drive fit(mode) with the counts at 0; check finite, decreasing
     per-phase losses and the launches of each kernel: K1 and K2 as
-    expected, and the skinning pair at least twice per contact step (a
-    forward and a backward). Returns (K1 launches, K2 launches, fit
-    seconds, loss histories, (body [T, 75], scale, camera_ext [T, 4, 4])
-    as solved, the skinning pair's launches)."""
+    expected, the skinning pair at least twice per contact step (a
+    forward and a backward), and the Adam kernel at least once per step
+    of the histories. Returns (K1 launches, K2 launches, fit seconds,
+    loss histories, (body [T, 75], scale, camera_ext [T, 4, 4]) as
+    solved, the skinning pair's launches, the Adam kernel's)."""
+    from fpv4d_torch.ops import adam_cuda as AC
     from fpv4d_torch.ops import skin_cuda as S
     _reset_counts(C, K)
     t0 = time.perf_counter()
@@ -379,7 +392,8 @@ def _run_fit(solver, prob, mode, C, K, expect, label):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     got = (C.launches, K.launches)
-    n_skin = S.launches
+    n_skin, n_adam = S.launches, AC.launches
+    n_steps = sum(len(v) for v in hist.values())
     for k, v in hist.items():
         print(f"[{label}] {k}: {len(v)} steps, loss {v[0]:.6f} -> "
               f"{v[-1]:.6f}, {solver.phase_seconds[k]:.3f} s", flush=True)
@@ -392,9 +406,13 @@ def _run_fit(solver, prob, mode, C, K, expect, label):
     print(f"[{label}] other stages (s): {others}; fit total {fit_s:.3f} s; "
           f"K1 launches {got[0]}, K2 launches {got[1]} (expected "
           f"{expect[0]}, {expect[1]}); skinning pair launches {n_skin} "
-          f"(at least {2 * sum(expect)})", flush=True)
+          f"(at least {2 * sum(expect)}); Adam kernel launches {n_adam} "
+          f"(at least {n_steps})", flush=True)
     if got != expect:
         raise AssertionError(f"{label}: launches {got}, expected {expect}")
+    if n_adam < max(1, n_steps):
+        raise AssertionError(f"{label}: the Adam kernel launched {n_adam} "
+                             f"times, expected at least {n_steps}")
     if n_skin < max(1, 2 * sum(expect)):
         raise AssertionError(f"{label}: the skinning pair launched "
                              f"{n_skin} times, expected at least "
@@ -406,7 +424,7 @@ def _run_fit(solver, prob, mode, C, K, expect, label):
             and np.all(np.isfinite(cam))):
         raise AssertionError(f"{label}: final parameters not finite / "
                              "wrong shape")
-    return got[0], got[1], fit_s, hist, (body, scale, cam), n_skin
+    return got[0], got[1], fit_s, hist, (body, scale, cam), n_skin, n_adam
 
 
 def _hold_histories(hg, hc, label, what="cuda vs cpu", watch=()):
@@ -1998,6 +2016,90 @@ def _skin_phase(prob, dev):
     return out
 
 
+# phase 4c's Adams: dct-grid's four leaves (ClipState at T = 900: body_6d,
+# scale, camera_ext, c_dct) and an 8-clip fleet's (the same per clip)
+ADAM_LEAVES = (("dct-grid's four leaves", 1), ("8-clip fleet", 8))
+# steps a timed call runs back to back (eager, or in one captured graph)
+ADAM_STEPS = 50
+
+
+def _adam_phase(dev):
+    """Phase 4c: the Adam kernel at each of ADAM_LEAVES: 5 steps from
+    seeded leaves and gradients (one leaf's zero in every other step)
+    bit-equal to the foreach route (foreach_step on copies); then ms a
+    step of the kernel and of the foreach route over ADAM_STEPS steps
+    back to back, eager and in one captured graph's replay (a step as a
+    solve's replays run it), against the bytes bound (each element's p,
+    g, mu and nu read and written once: 32 bytes). Returns the kernel entries
+    of the result line, whose `launches` main() fills from phases 5-7's
+    fits."""
+    from fpv4d_torch.solve.adam import Adam, foreach_step
+    from fpv4d_torch.utils.cost import HBM_BPS
+    out = []
+    for label, C in ADAM_LEAVES:
+        lead = () if C == 1 else (C,)
+        shapes = [lead + s for s in ((900, 78), (), (900, 4, 4),
+                                     (15, 23, 3, 5))]
+        gen = torch.Generator(device=dev).manual_seed(C)
+        leaves = [torch.randn(s, device=dev, generator=gen) for s in shapes]
+        grads = [[torch.randn(s, device=dev, generator=gen)
+                  * (0.0 if (k % 2 and i == 3) else 10.0 ** (k - 2))
+                  for i, s in enumerate(shapes)] for k in range(5)]
+        opt = Adam([x.clone() for x in leaves], 0.005)
+        ref = ([x.clone() for x in leaves],
+               [torch.zeros_like(x) for x in leaves],
+               [torch.zeros_like(x) for x in leaves],
+               torch.zeros((), dtype=torch.int32, device=dev))
+        for gs in grads:
+            for p, g in zip(opt.params, gs):
+                p.grad.copy_(g)
+            opt.step()
+            foreach_step(ref[0], gs, ref[1], ref[2], ref[3], 0.005, 0.9,
+                         0.999, 1e-8)
+        state = opt.params + opt.mu + opt.nu + [opt.count]
+        if not all(torch.equal(a, b) for a, b in
+                   zip(state, ref[0] + ref[1] + ref[2] + [ref[3]])):
+            raise AssertionError(f"adam {label}: the kernel's steps differ "
+                                 f"from the foreach route's")
+
+        def foreach():
+            foreach_step(ref[0], grads[0], ref[1], ref[2], ref[3], 0.005,
+                         0.9, 0.999, 1e-8)
+
+        def steps(fn):
+            def run():
+                for _ in range(ADAM_STEPS):
+                    fn()
+            return run
+
+        ms = {}
+        for route, fn in (("kernel", opt.step), ("foreach", foreach)):
+            ms[route] = median_ms(steps(fn)) / ADAM_STEPS
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                steps(fn)()
+            ms[route + " replay"] = median_ms(graph.replay) / ADAM_STEPS
+            del graph
+        n = sum(x.numel() for x in leaves)
+        bound_ms = 32 * n / HBM_BPS * 1e3
+        print(f"[adam] {label}, {n} elements: kernel {ms['kernel']:.4f} ms "
+              f"eager, {ms['kernel replay']:.4f} ms replayed; foreach "
+              f"{ms['foreach']:.4f} ms eager, {ms['foreach replay']:.4f} "
+              f"ms replayed; bound {bound_ms:.4f} ms (bytes), "
+              f"{bound_ms / ms['kernel replay']:.1%} of it; 5 steps "
+              f"bit-equal to the foreach route", flush=True)
+        out.append({"name": f"adam_step ({label}, {n} elements)",
+                    "route": "cuda",
+                    "source": "fpv4d_torch/csrc/adam_step.cu",
+                    "replaces": "none (XLA's fused optax update)",
+                    "launches": None, "max_abs_err": 0.0,
+                    "ms": ms["kernel replay"], "eager_ms": ms["kernel"],
+                    "plain_ms": ms["foreach replay"],
+                    "plain_eager_ms": ms["foreach"], "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": ms["foreach replay"]})
+    return out
+
+
 def _grad_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| over the largest |b| (tests/test_fk_vjp.py's rule)."""
     return float((a - b).abs().max() / (b.abs().max() + 1e-6))
@@ -2083,7 +2185,7 @@ def _fk_phase(prob, dev, state, C, K, n_a):
             fk.rigid_transform_prod = (fk.rigid_transform
                                        if name == "adjoint"
                                        else fk.rigid_transform_ref)
-            _, _, fit_s, hist, _, _ = _run_fit(
+            _, _, fit_s, hist, _, _, _ = _run_fit(
                 solver, prob, "local", C, K, (n_a, 0), f"local/FK {name}")
             fits[name].append((fit_s, dict(solver.phase_seconds), hist))
     finally:
@@ -2677,6 +2779,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from fpv4d_torch.io import native
+    from fpv4d_torch.ops import adam_cuda as AC
     from fpv4d_torch.ops import cand_cuda as C
     from fpv4d_torch.ops import chamfer_cuda as K
     from fpv4d_torch.ops import cuda_build
@@ -2696,13 +2799,14 @@ def main() -> int:
     # 2. build: one compiler per source (nvcc for K1 and K2, the host
     # compiler for the grid builder), started together
     t0 = time.perf_counter()
-    logs = cuda_build.compile_sources([C.SRC, K.SRC, S.SRC, native.SRC,
-                                       native.IO_SRC])
+    logs = cuda_build.compile_sources([C.SRC, K.SRC, S.SRC, AC.SRC,
+                                       native.SRC, native.IO_SRC])
     C.build()
     K.build()
     S.build()
-    print(f"[build] K1, K2, the skinning pair, the grid builder and the "
-          f"native io built in "
+    AC.build()
+    print(f"[build] K1, K2, the skinning pair, the Adam kernel, the grid "
+          f"builder and the native io built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -2820,13 +2924,17 @@ def main() -> int:
     # 4b. the skinning pair against its plain version
     skin = _skin_phase(prob, dev)
 
+    # 4c. the Adam kernel against the foreach route
+    adam = _adam_phase(dev)
+
     cfg = solver.config
     n_a = int(cfg.num_iter * cfg.stage_split)
     n_dct_b = cfg.num_iter_dct - int(cfg.num_iter_dct * cfg.dct_split)
 
     # 5. the local path (the main path of the first slice)
-    k1_launches, _, local_s, local_hist, local_solved, skin_launches = \
-        _run_fit(solver, prob, "local", C, K, (n_a, 0), "local")
+    (k1_launches, _, local_s, local_hist, local_solved, skin_launches,
+     adam_launches) = _run_fit(solver, prob, "local", C, K, (n_a, 0),
+                               "local")
     local_seconds = dict(solver.phase_seconds)
 
     # 6. global: brute-force contact NN (K2), then the grid (K1)
@@ -2835,19 +2943,26 @@ def main() -> int:
     print(f"[setup] brute-force standard problem in "
           f"{time.perf_counter() - t0:.2f} s (no voxel grid: "
           f"{prob_b.solver.grid is None})", flush=True)
-    _, k2_launches, _, _, _, n_skin = _run_fit(
+    _, k2_launches, _, _, _, n_skin, n_adam = _run_fit(
         prob_b.solver, prob_b, "global", C, K, (0, n_a), "global/brute")
     skin_launches += n_skin
+    adam_launches += n_adam
     del prob_b
     torch.cuda.empty_cache()
-    skin_launches += _run_fit(solver, prob, "global", C, K, (n_a, 0),
-                              "global/grid")[-1]
+    n_skin, n_adam = _run_fit(solver, prob, "global", C, K, (n_a, 0),
+                              "global/grid")[-2:]
+    skin_launches += n_skin
+    adam_launches += n_adam
 
     # 7. dct with the grid, at full length
-    skin_launches += _run_fit(solver, prob, "dct", C, K, (n_dct_b, 0),
-                              "dct/grid")[-1]
+    n_skin, n_adam = _run_fit(solver, prob, "dct", C, K, (n_dct_b, 0),
+                              "dct/grid")[-2:]
+    skin_launches += n_skin
+    adam_launches += n_adam
     for entry in skin:
         entry["launches"] = skin_launches
+    for entry in adam:
+        entry["launches"] = adam_launches
 
     # 8. small solves on the card agree with the same solves on the CPU
     for mode, nn_impl in (("local", "grid"), ("global", "brute"),
@@ -2958,7 +3073,7 @@ def main() -> int:
         entry("cand_nn (frames shard, 450 of 900 frames, per rank)", k1_src,
               k1_frames_launches, k1_frames),
         entry("chamfer_nn (frames shard, 450 of 900 frames, per rank)",
-              k2_src, k2_frames_launches, k2_frames)] + skin}))
+              k2_src, k2_frames_launches, k2_frames)] + skin + adam}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -20,6 +20,20 @@ runs the same code on the CPU. The clip solve keeps every leaf's
 ``.grad`` allocated and zeroes it in place, so a leaf a phase does not
 reach takes an Adam step on its moments with a zero gradient, as optax
 does with the reference's masked (zero) gradients.
+
+Two routes, by the leaves' device, never one as the other's fallback:
+CPU leaves take torch's foreach ops (``foreach_step``, the plain route,
+counted ``adam/plain`` while tracing is on); CUDA leaves take one
+hand-written kernel over every leaf (ops/adam_cuda.py,
+csrc/adam_step.cu; counted ``adam/cuda``), which gives the plain
+route's bits on the card in one launch in place of 22. On the kernel route the step also writes
+each gradient 0 after reading it, so the gradients are 0 from
+construction on except between a backward and the step that takes it,
+and ``zero_grad`` launches nothing: every caller's step is zero_grad,
+backward, (a gradient sum across ranks), step, and nothing reads a
+gradient after the step. The kernel's table holds the addresses of the
+leaves, gradients and moments as they are at construction: they are
+updated in place, never replaced.
 """
 from __future__ import annotations
 
@@ -27,6 +41,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from fpv4d_torch.ops import adam_cuda
 from fpv4d_torch.utils import observability as OBS
 
 
@@ -52,35 +67,47 @@ class Adam:
                                                  for p in self.params]
             self.count = (count if count is not None else torch.zeros(
                 (), dtype=torch.int32, device=self.params[0].device))
+            self._grads = [p.grad for p in self.params]
+            self._table = None
+            if self.count.is_cuda:
+                if self.count.dtype != torch.int32 or any(
+                        p.device != self.count.device for p in self.params):
+                    raise ValueError("the Adam kernel takes an int32 count "
+                                     "on the leaves' card")
+                torch._foreach_zero_(self._grads)
+                self._table = adam_cuda.leaf_table(self.params, self._grads,
+                                                   self.mu, self.nu)
 
     @torch.no_grad()
     def zero_grad(self) -> None:
         """Every leaf's gradient set to 0 in place (an adam section of
-        utils/observability.py)."""
+        utils/observability.py); on the kernel route the last step has
+        left them 0 already, and nothing is launched."""
+        if self._table is not None:
+            return
         with OBS.section("adam", self.count.device):
             torch._foreach_zero_([p.grad for p in self.params])
 
     @torch.no_grad()
     def step(self) -> None:
         """One step of every leaf (an adam section of
-        utils/observability.py)."""
+        utils/observability.py): the kernel for CUDA leaves, the foreach
+        route for CPU leaves."""
+        if self._table is None:
+            OBS.count("adam/plain")
+            with OBS.section("adam", self.count.device):
+                foreach_step(self.params, [p.grad for p in self.params],
+                             self.mu, self.nu, self.count, self.lr, self.b1,
+                             self.b2, self.eps)
+            return
+        OBS.count("adam/cuda")
+        if any(p.grad is not g for p, g in zip(self.params, self._grads)):
+            raise RuntimeError("a leaf's .grad was replaced: the Adam kernel "
+                               "steps the gradients its table was built "
+                               "with")
         with OBS.section("adam", self.count.device):
-            g = [p.grad for p in self.params]
-            torch._foreach_mul_(self.mu, self.b1)
-            torch._foreach_add_(self.mu, torch._foreach_mul(g, 1 - self.b1))
-            g2 = torch._foreach_mul(g, g)
-            torch._foreach_mul_(g2, 1 - self.b2)
-            torch._foreach_mul_(self.nu, self.b2)
-            torch._foreach_add_(self.nu, g2)
-            self.count.add_(1)
-            bc1 = 1 - torch.pow(self.b1, self.count)
-            bc2 = 1 - torch.pow(self.b2, self.count)
-            den = torch._foreach_div(self.nu, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, self.eps)
-            upd = torch._foreach_div(torch._foreach_div(self.mu, bc1), den)
-            torch._foreach_mul_(upd, -self.lr)
-            torch._foreach_add_(self.params, upd)
+            adam_cuda.step(self._table, self.count, self.lr, self.b1,
+                           self.b2, self.eps)
 
     def select(self, sl: slice) -> "Adam":
         """An Adam over rows `sl` of every leaf's leading axis (a fleet's
@@ -124,3 +151,29 @@ class Adam:
         group = sd["param_groups"][0]
         self.lr, self.eps = group["lr"], group["eps"]
         self.b1, self.b2 = group["betas"]
+
+
+@torch.no_grad()
+def foreach_step(params: Sequence[torch.Tensor],
+                 grads: Sequence[torch.Tensor], mu: Sequence[torch.Tensor],
+                 nu: Sequence[torch.Tensor], count: torch.Tensor, lr: float,
+                 b1: float, b2: float, eps: float) -> None:
+    """The plain route: one step of the leaves, moments and count in
+    place by torch's foreach ops, every operation of the module's
+    docstring in its order (on any device: on the card it is the
+    kernel's yardstick, bit for bit)."""
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
+    g2 = torch._foreach_mul(grads, grads)
+    torch._foreach_mul_(g2, 1 - b2)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_add_(nu, g2)
+    count.add_(1)
+    bc1 = 1 - torch.pow(b1, count)
+    bc2 = 1 - torch.pow(b2, count)
+    den = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, eps)
+    upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+    torch._foreach_mul_(upd, -lr)
+    torch._foreach_add_(params, upd)

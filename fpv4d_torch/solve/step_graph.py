@@ -83,11 +83,11 @@ step reads (the leaves, the Adam state, targets, weights, scenes,
 grids) is fixed for the life of the program, one fit. A failed capture
 or replay raises: there is no fallback to the eager route.
 
-The kernels' launch counts (ops/cand_cuda.py, ops/chamfer_cuda.py) grow
-where their wrappers run, which a replay does not: the program takes
-back what the wrappers counted while the step was being captured (the
-capture launches nothing) and adds, for each replay, the launches one
-captured step holds.
+The kernels' launch counts (the ``launches`` of each module in
+``COUNTED``) grow where their wrappers run, which a replay does not: the
+program takes back what the wrappers counted while the step was being
+captured (the capture launches nothing) and adds, for each replay, the
+launches one captured step holds.
 
 With tracing on (utils/observability.py) a capture is a span
 ``capture/<phase>``, a refresh a span ``refresh/<phase>`` and a ``call``'s
@@ -102,7 +102,7 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence
 
 import torch
 
-from fpv4d_torch.ops import cand_cuda, chamfer_cuda, skin_cuda
+from fpv4d_torch.ops import adam_cuda, cand_cuda, chamfer_cuda, skin_cuda
 from fpv4d_torch.utils import observability as OBS
 
 # eager steps of a key before its capture (cuBLAS handles and
@@ -111,7 +111,7 @@ from fpv4d_torch.utils import observability as OBS
 WARMUP_STEPS = 2
 
 # the modules whose `launches` counts a replay must advance
-COUNTED = (cand_cuda, chamfer_cuda, skin_cuda)
+COUNTED = (cand_cuda, chamfer_cuda, skin_cuda, adam_cuda)
 
 
 def _counts() -> List[int]:
