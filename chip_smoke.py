@@ -29,7 +29,11 @@ Phases, each fatal on failure:
                 coordinates near +-1,000; kernel, plain, library
                 (torch.cdist + min over 8,192-query chunks) times, the
                 share of the bound, and the re-checks per query (main
-                shape and far queries);
+                shape and far queries); then K2 at every shape the port
+                launches it with and at the brute benchmark cells'
+                [300, 814], over the floor row by row and shuffled,
+                each held bit for bit, timed against its bound, with its
+                re-checks per query (mean and max);
   4b. skin     the skinning pair (csrc/lbs_skin.cu) on the standard
                 model's tables at the clip solve's shapes: the full
                 mesh [300, 10,475] (55 joints), the contact set pruned
@@ -292,6 +296,59 @@ def _rechecks(label, fn, shape, dev):
     print(f"[rechecks] {label}: mean {mean:.4f} max {mx} per query",
           flush=True)
     return mean, mx
+
+
+def _k2_shapes(q, scene_np):
+    """[(name, x, y, clips)]: K2's launch shapes, from the contact
+    vertices q [900, 813, 3] on a card and the scene (numpy): the global
+    solve ([900, 813]), bench.py's random [64, 896] x the first 4,096
+    scene points, the fleet's clip axis (clip 1 shifted by (0.5, 0,
+    0.25) m, its scene cut to 80,000 points and padded), a frames rank's
+    half ([450, 813]), and the brute cells' [300, 814] (the first 300
+    frames, one more column from frames 300-599) over the floor as it is
+    stored, row by row, and shuffled, where no stretch of the cloud is
+    local."""
+    from fpv4d_torch.parallel.multi_clip import pad_scenes
+    dev = q.device
+    scene = torch.as_tensor(scene_np, device=dev)
+    rng = np.random.RandomState(0)
+    bench_x = torch.as_tensor(rng.randn(64, 896, 3).astype(np.float32),
+                              device=dev)
+    shift = np.float32([0.5, 0.0, 0.25])
+    y2 = torch.as_tensor(pad_scenes([scene_np, scene_np[:80_000] + shift]),
+                         device=dev)
+    x2 = torch.stack([q, q + torch.as_tensor(shift, device=dev)])
+    cell = torch.cat([q[:300], q[300:600, :1]], 1).contiguous()
+    shuffled = scene[torch.as_tensor(rng.permutation(len(scene_np)),
+                                     device=dev)].contiguous()
+    return [("global", q, scene, 1),
+            ("bench", bench_x, scene[:4096].contiguous(), 1),
+            ("clip-axis", x2, y2, 2),
+            ("frames-shard", q[:450].contiguous(), scene, 1),
+            ("cell", cell, scene, 1),
+            ("cell, shuffled", cell, shuffled, 1)]
+
+
+def _k2_row(K, name, x, y, clips) -> dict:
+    """K2 at one shape: held to its plain version bit for bit (fatal),
+    its kernel ms (CUDA-event median of 10), its bound and its re-checks
+    per query (mean and max)."""
+    Q, M = x.numel() // (3 * clips), y.shape[-2]
+    d_k, i_k = K.nn_distance_cuda(x, y)
+    d_p, i_p = K.nn_distance_plain(x, y)
+    if not (torch.equal(d_k, d_p) and torch.equal(i_k, i_p)):
+        raise AssertionError(f"K2 disagrees with its plain version: {name}")
+    del d_k, i_k, d_p, i_p
+    ms = median_ms(lambda: K.nn_distance_cuda(x, y), reps=10)
+    mean, mx = _rechecks(f"K2 {name}", lambda n: K.nn_distance_cuda(
+        x, y, rechecks=n), x.shape[:-1], x.device)
+    bound, by = k2_bound_ms(Q, M, clips=clips)
+    print(f"[K2] {name} [{clips}, {Q}] x {M}: {ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}), {bound / ms:.1%} of it; exact=True",
+          flush=True)
+    return {"shape": name, "Q": Q, "M": M, "clips": clips, "ms": ms,
+            "bound_ms": bound, "bound_by": by, "share": bound / ms,
+            "rechecks_mean": mean, "rechecks_max": mx}
 
 
 def _check_k1(C, q, cand, valid, label):
@@ -2918,6 +2975,9 @@ def main() -> int:
           f"{k2_bound / k2_ms:.1%} of the bound", flush=True)
     _rechecks(f"K2 {tuple(q.shape[:2])} x {M}", lambda n:
               K.nn_distance_cuda(q, scene, rechecks=n), q.shape[:2], dev)
+    # K2 at every shape the port launches it with and the brute cells'
+    # shape, each held to the plain version bit for bit
+    k2_rows = [_k2_row(K, *shape) for shape in _k2_shapes(q, prob.scene)]
     del q, x_odd, dup, x_eq, x_rand, sph
     torch.cuda.empty_cache()
 
@@ -3050,6 +3110,9 @@ def main() -> int:
     k1_src = ("fpv4d_torch/csrc/cand_nn.cu", "fpv4d/ops/cand_pallas.py:160")
     k2_src = ("fpv4d_torch/csrc/chamfer_nn.cu",
               "fpv4d/ops/chamfer_pallas.py:55")
+    k2_shapes = {r["shape"]: {k: r[k] for k in (
+        "Q", "M", "clips", "ms", "bound_ms", "share",
+        "rechecks_mean", "rechecks_max")} for r in k2_rows}
 
     def entry(name, src, launches, m):
         err, ms, plain_ms, lib_ms, bound_ms, bound_by = m
@@ -3073,7 +3136,8 @@ def main() -> int:
         entry("cand_nn (frames shard, 450 of 900 frames, per rank)", k1_src,
               k1_frames_launches, k1_frames),
         entry("chamfer_nn (frames shard, 450 of 900 frames, per rank)",
-              k2_src, k2_frames_launches, k2_frames)] + skin + adam}))
+              k2_src, k2_frames_launches, k2_frames)] + skin + adam,
+        "chamfer_nn_shapes": k2_shapes}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -17,12 +17,17 @@ and the kernel makes one launch for all clips.
 The TPU kernel selects with a folded Gram form (|y|^2 - 2 x.y in bf16x3
 emulation), whose winners can differ from exact differences among
 near-ties. The kernel here (csrc/chamfer_nn.cu) runs the same folded
-product on the tensor cores, but only as a filter: every point that
-comes within a proven margin of a query's best is re-evaluated in the
-difference form (dx*dx + dy*dy) + dz*dz, in f32 without FMA contraction,
-so the kernel is bit-identical to ``nn_distance_plain`` on the card.
+product on the tensor cores (wgmma, with each query's threshold folded
+into the product), but only as a filter: every point that comes within
+a proven margin of a query's best is re-evaluated in the difference
+form (dx*dx + dy*dy) + dz*dz, in f32 without FMA contraction, so the
+kernel is bit-identical to ``nn_distance_plain`` on the card.
 ``filter_emulated`` repeats the filter in plain PyTorch (ops/gram_nn.py)
-so the CPU tests can prove that the exact winner always passes it.
+so the CPU tests can prove that the exact winner always passes it, and
+``filter_probe`` (tests only) returns the card's raw filter values.
+
+``nn_index`` counts ``k2/cuda`` or ``k2/plain`` (utils/observability.py)
+while tracing is on: the kernel or the plain version.
 
 The kernel is built with nvcc at first use (``build()``, see
 ops/cuda_build.py); importing this module needs no CUDA toolkit.
@@ -35,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from fpv4d_torch.ops import cuda_build, gram_nn
+from fpv4d_torch.utils import observability as OBS
 
 # kernel launches since the count was last reset (a plain integer: a
 # run sets it to 0 and reads it back to show the path used the kernel)
@@ -42,14 +48,15 @@ launches = 0
 
 SRC = cuda_build.CSRC / "chamfer_nn.cu"
 _launch = None          # the kernel's C entry point, once built
+_probe = None           # the filter probe's C entry point (tests only)
 build_log = ""
 
 # the plain version's [chunk, M] intermediates hold at most this many
 # elements each (256 MB in f32)
 _PLAIN_ELEMS = 1 << 26
 
-# queries per block of the kernel, all centred on the block's first
-BLOCK_QUERIES = 256
+# queries per tile of the kernel, all centred on the tile's first
+BLOCK_QUERIES = 384
 
 
 def build() -> float:
@@ -161,13 +168,46 @@ def nn_distance_cuda(x: torch.Tensor, y: torch.Tensor,
     return dist, idx
 
 
+def filter_probe(x: torch.Tensor, y: torch.Tensor, neg_tau: torch.Tensor
+                 ) -> torch.Tensor:
+    """Tests only: the card's raw filter values [Q, M] of queries x
+    [Q, 3] (Q <= BLOCK_QUERIES, one tile centred on x[0]) against y
+    [M, 3], with -tau = neg_tau [Q] folded into the product as K2 folds
+    it: F~ - tau, or F~ itself where neg_tau is 0."""
+    global _probe
+    for name, t in (("x", x), ("y", y), ("neg_tau", neg_tau)):
+        if not t.is_cuda or t.dtype != torch.float32:
+            raise ValueError(f"filter_probe: {name} must be f32 on a card")
+    Q, M = x.shape[0], y.shape[0]
+    if not (x.shape == (Q, 3) and y.shape == (M, 3)
+            and neg_tau.shape == (Q,) and 1 <= Q <= BLOCK_QUERIES
+            and M >= 1):
+        raise ValueError("filter_probe takes x [Q, 3] (1 <= Q <= 384), "
+                         "y [M, 3] (M >= 1), neg_tau [Q]")
+    build()
+    if _probe is None:
+        ptr, i32 = cuda_build.POINTER, cuda_build.INT
+        _probe = cuda_build.load_function(SRC, "chamfer_nn_probe",
+                                          [ptr] * 4 + [i32] * 2 + [ptr])[0]
+    x, y, neg_tau = x.contiguous(), y.contiguous(), neg_tau.contiguous()
+    out = torch.empty((Q, M), dtype=torch.float32, device=x.device)
+    err = _probe(x.data_ptr(), y.data_ptr(), neg_tau.data_ptr(),
+                 out.data_ptr(), Q, M,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"filter probe launch failed: CUDA error {err}")
+    return out
+
+
 def filter_emulated(x: torch.Tensor, y: torch.Tensor, kind: str = "bf16"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's filter in plain PyTorch, blocks of BLOCK_QUERIES
-    queries centred as the kernel centres them: (whether each query's
-    exact winner and ties pass the filter at the winner's distance [...]
-    bool; how many points pass there [...] int64, the re-checks a query
-    costs once its winner is found). One cloud y [M, 3]."""
+    """The kernel's filter in plain PyTorch, tiles of BLOCK_QUERIES
+    queries centred as the kernel centres them, each query's threshold
+    folded into the product as the kernel folds it: (whether each
+    query's exact winner and ties pass the filter at the winner's
+    distance [...] bool; how many points pass there [...] int64, the
+    re-checks a query costs once its winner is found). One cloud
+    y [M, 3]."""
     if y.ndim != 2:
         raise ValueError("filter_emulated takes one cloud [M, 3]")
     _check_cloud(y)
@@ -175,7 +215,8 @@ def filter_emulated(x: torch.Tensor, y: torch.Tensor, kind: str = "bf16"
     won, passes = [], []
     for s in range(0, xf.shape[0], BLOCK_QUERIES):
         xb = xf[s:s + BLOCK_QUERIES]
-        w, n = gram_nn.block_passes(xb, y, dist_sq_qm(xb, y), kind=kind)
+        w, n = gram_nn.block_passes(xb, y, dist_sq_qm(xb, y), kind=kind,
+                                    folded=True)
         won.append(w)
         passes.append(n)
     return (torch.cat(won).reshape(x.shape[:-1]),
@@ -187,7 +228,9 @@ def nn_index(x: torch.Tensor, y: torch.Tensor
     """Dispatch on the tensors' device: the plain version for CPU
     tensors, the kernel for CUDA tensors (never a fallback)."""
     if x.is_cuda:
+        OBS.count("k2/cuda")
         return nn_distance_cuda(x, y)
+    OBS.count("k2/plain")
     return nn_distance_plain(x, y)
 
 

@@ -16,6 +16,13 @@ margin's accumulation term covers that difference. ``theta`` is
 evaluated in f64 and rounded up to f32, never above the kernels' own
 upward-rounded f32 evaluation. The tests use this module to prove the
 margin on the CPU; nothing on the solve path calls it.
+
+K2 (csrc/chamfer_nn.cu) folds each row's threshold into the product:
+-tau (``neg_tau``: tau = theta + 1.03 * 2^-16 |theta| + 1e-20, rounded
+up) split into three parts whose sum is -tau exactly (``split3``) sits
+in the row against a column of ones, and a point passes when the sign
+bit of fl(F~ - tau) is set (``block_passes(..., folded=True)``). K1
+tests F~ <= theta.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 U = 2.0 ** -24
 ABS = 1e-20          # absolute floor of the margin
 PAD_YY = 1e30        # |y|^2 of padded and invalid points
+NO_BOUND = -2.0 ** 126   # K2's -tau of a row with no threshold yet
 
 # (e_a, e_b) of the margin for each split: the split's error per product
 # (3.03 s^2 with s the part's unit roundoff, 1.01 s^2 for the "1"
@@ -106,16 +114,42 @@ def upper_d(v: torch.Tensor, X: torch.Tensor, kind: str = "bf16"
                        torch.full_like(up, float("inf")))
 
 
+def neg_tau(th: torch.Tensor) -> torch.Tensor:
+    """K2's -tau of thresholds th (csrc/gram_nn.cuh, offset): tau =
+    th + 1.03 * 2^-16 |th| + 1e-20 rounded up to f32; NO_BOUND where th
+    is not finite."""
+    d = th.double()
+    tau = _f32_up(d + 1.03 * 2.0 ** -16 * d.abs() + ABS)
+    return torch.where(torch.isfinite(th), -tau,
+                       torch.full_like(tau, NO_BOUND))
+
+
+def split3(v: torch.Tensor, kind: str = "bf16"
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 v -> three parts (f32, each exact in the split's type) whose
+    sum is v exactly: p1 = round(v), p2 = round(v - p1),
+    p3 = round(v - p1 - p2), each difference exact in f32."""
+    p1 = split(v, kind)[0]
+    p2, p3 = split(v - p1, kind)
+    return p1, p2, p3
+
+
 def filter_values(a: torch.Tensor, b: torch.Tensor, yy: torch.Tensor,
-                  kind: str = "bf16") -> torch.Tensor:
+                  kind: str = "bf16", neg: torch.Tensor = None
+                  ) -> torch.Tensor:
     """F~ [n, M] f32 of centred queries a [n, 3] against centred points
-    b [M, 3] with |y|^2 column yy [M] (PAD_YY for invalid points)."""
+    b [M, 3] with |y|^2 column yy [M] (PAD_YY for invalid points); with
+    -tau per row `neg` [n], F~ - tau, the three parts of -tau summed
+    with the products (K2's folded form)."""
     xp = torch.cat([-2.0 * a, torch.ones_like(a[:, :1])], 1)
     yp = torch.cat([b, yy[:, None]], 1)
     xh, xl = split(xp, kind)
     yh, yl = split(yp, kind)
     xh, xl, yh, yl = (t.double() for t in (xh, xl, yh, yl))
-    return (xh @ yh.T + xh @ yl.T + xl @ yh.T).float()
+    f = xh @ yh.T + xh @ yl.T + xl @ yh.T
+    if neg is not None:
+        f = f + sum(p.double() for p in split3(neg, kind))[:, None]
+    return f.float()
 
 
 def centred_points(y: torch.Tensor, c: torch.Tensor,
@@ -132,18 +166,25 @@ def centred_points(y: torch.Tensor, c: torch.Tensor,
 
 
 def block_passes(x: torch.Tensor, y: torch.Tensor, d: torch.Tensor,
-                 valid: torch.Tensor = None, kind: str = "bf16"
+                 valid: torch.Tensor = None, kind: str = "bf16",
+                 folded: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block of queries x [n, 3], centred on x[0], against points
     y [M, 3] whose exact distances (the plain version's) are d [n, M]:
     whether every point at a row's least exact distance d* (its winner
     and any tie) passes the filter at theta(d*) [n] bool, and each row's
-    count of points that pass there [n]."""
+    count of points that pass there [n]. A point passes when
+    F~ <= theta(d*), or with `folded` (K2) when the sign bit of
+    fl(F~ - tau) is set, tau that threshold's (neg_tau)."""
     c = x[0]
     a = x - c
     X, K_lo = row_bounds(a)
     b, yy = centred_points(y, c, valid)
-    ok = filter_values(a, b, yy, kind) <= theta(d.min(1).values, X, K_lo,
-                                                kind)[:, None]
+    th = theta(d.min(1).values, X, K_lo, kind)
+    if folded:
+        v = filter_values(a, b, yy, kind, neg=neg_tau(th))
+        ok = torch.signbit(v)
+    else:
+        ok = filter_values(a, b, yy, kind) <= th[:, None]
     ties = d == d.min(1, keepdim=True).values
     return (ok | ~ties).all(1), ok.sum(1)

@@ -30,6 +30,24 @@ def _clouds(N=100, M=777, seed=0, scale=1.0, B=2):
     return x, y
 
 
+def test_route_counters_name_the_plain_version_on_the_cpu():
+    """nn_index counts k2/plain for CPU tensors while tracing is on, and
+    nothing while it is off."""
+    from fpv4d_torch.utils import observability as OBS
+    x, y = _clouds(7, 40, 26)
+    xt, yt = torch.as_tensor(x), torch.as_tensor(y)
+    OBS.reset_counts()
+    K.nn_index(xt, yt)
+    assert OBS.counts() == {}
+    with OBS.tracing(True):
+        OBS.reset_counts()
+        K.nn_distance(xt, yt)
+        K.nn_index(xt, yt)
+        counts = OBS.counts()
+    OBS.reset_counts()
+    assert counts == {"k2/plain": 2}
+
+
 def test_cpu_tensors_take_plain_version():
     x, y = _clouds(30, 64, 14)
     xt, yt = torch.as_tensor(x), torch.as_tensor(y)
@@ -45,6 +63,9 @@ def test_kernel_wrapper_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         K.nn_distance_cuda(torch.as_tensor(x), torch.as_tensor(y))
     with pytest.raises(ValueError):
+        K.filter_probe(torch.as_tensor(x[0]), torch.as_tensor(y),
+                       torch.zeros(5))
+    with pytest.raises(ValueError):
         K.nn_distance(torch.as_tensor(x), torch.zeros(0, 3))
     with pytest.raises(ValueError):
         K.nn_distance_plain(torch.as_tensor(x), torch.zeros(4, 2))
@@ -52,7 +73,10 @@ def test_kernel_wrapper_rejects_what_it_does_not_take():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("N,M,scale", [(813, 3001, 1.0), (1, 5, 1.0),
-                                       (1000, 2049, 1.0), (129, 300, 40.0)])
+                                       (1000, 2049, 1.0), (129, 300, 40.0),
+                                       (129, 1, 1.0), (700, 90, 1.0),
+                                       (1, 1, 1.0), (4001, 97, 3.0),
+                                       (500, 300_001, 1.0)])
 def test_kernel_matches_plain_bit_exactly(cuda_device, N, M, scale):
     x, y = _clouds(N, M, 16, scale)
     y = np.concatenate([y, y[:M // 3]])       # duplicates
@@ -167,3 +191,121 @@ def test_rechecks_must_fit_the_queries(cuda_device):
                            torch.as_tensor(y, device=cuda_device),
                            rechecks=torch.zeros(3, dtype=torch.int32,
                                                 device=cuda_device))
+
+
+def _cell_inputs(T=300, N=814, g=317, seed=23):
+    """The brute cells' shape (perfbench/inputs/synth.py): a 10 m x 10 m
+    floor of g x g points at height -1 with 5 cm noise clipped at 3
+    sigma, row by row, and T frames of N leg vertices standing on it,
+    each frame's legs moved over the floor."""
+    rng = np.random.RandomState(seed)
+    lin = np.linspace(-5.0, 5.0, g, dtype=np.float32)
+    zs, xs = np.meshgrid(lin, lin, indexing="ij")
+    noise = np.clip(rng.randn(g * g), -3, 3)
+    y = np.stack([xs.ravel(), -1.0 + 0.05 * noise, zs.ravel()],
+                 1).astype(np.float32)
+    legs = rng.rand(T, N, 3) * [0.6, 1.0, 0.4] + [0.2, -1.05, -0.3]
+    move = np.cumsum(rng.randn(T, 1, 3) * [0.02, 0.0, 0.02], 0)
+    return (legs + move).astype(np.float32), y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_kernel_at_the_cell_shape(cuda_device, shuffled):
+    """[300, 814] leg vertices over the 100,489-point floor, stored row
+    by row or shuffled: bit-exact, and every query's winner re-checked."""
+    x, y = _cell_inputs()
+    if shuffled:
+        y = y[np.random.RandomState(27).permutation(len(y))]
+    xt = torch.as_tensor(x, device=cuda_device)
+    yt = torch.as_tensor(y, device=cuda_device)
+    rechecks = torch.zeros(xt.shape[:-1], dtype=torch.int32,
+                           device=cuda_device)
+    before = K.launches
+    d_k, i_k = K.nn_distance_cuda(xt, yt, rechecks=rechecks)
+    assert K.launches == before + 1
+    d_p, i_p = K.nn_distance_plain(xt, yt)
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    assert bool((rechecks >= 1).all())
+    print(f"re-checks a query: mean {float(rechecks.double().mean()):.3f}"
+          f", max {int(rechecks.max())}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", [(100, 37), (1, 300), (129, 1)])
+def test_kernel_over_a_ragged_clip_axis(cuda_device, sizes):
+    """Two clips of ragged clouds, padded to one M (below a stage, or one
+    point), 300 queries a clip: one launch, bit-exact, no padding point
+    wins."""
+    from fpv4d_torch.parallel.multi_clip import pad_scenes
+    x, y = _clouds(300, max(sizes), 24, B=2)
+    yb = torch.as_tensor(pad_scenes([y[:sizes[0]], y[:sizes[1]] + 0.5]),
+                         device=cuda_device)
+    xb = torch.as_tensor(x, device=cuda_device)
+    before = K.launches
+    d_k, i_k = K.nn_distance_cuda(xb, yb)
+    assert K.launches == before + 1
+    d_p, i_p = K.nn_distance_plain(xb, yb)
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    for c in range(2):
+        assert int(i_k[c].max()) < sizes[c]
+
+
+def _probe_case(name, rng):
+    """(queries [256, 3], points [M, 3], -tau per query or None) that
+    stress the filter's error: far centres, large |b|, near ties."""
+    x = (rng.randn(256, 3) * 0.3).astype(np.float32)
+    y = rng.randn(1000, 3).astype(np.float32)
+    if name == "far centre":
+        x += np.float32(100.0)
+        y = (y * 40).astype(np.float32)
+    elif name == "large |b|":
+        y = (y * 1e3).astype(np.float32)
+    elif name == "near ties":
+        u = rng.randn(1000, 3)
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        y = (x[0] + 0.37 * u).astype(np.float32)
+        y[::2, 1] = np.nextafter(y[::2, 1], np.float32(-np.inf))
+    elif name == "dead rows":
+        x = x[:200]
+    return x, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["unit", "far centre", "large |b|",
+                                  "near ties", "dead rows"])
+def test_filter_probe_within_the_margin_terms(cuda_device, case):
+    """The card's raw wgmma filter values (K.filter_probe, the kernel's
+    staging, fragments and product): |F~ - G| <= e_a 2|a||b| + e_b |b|^2
+    with no threshold, and with -tau folded in (tau near each row's
+    least G, where the sum cancels) |D - (G - tau)| <= the same plus
+    1.03 * 2^-16 |tau|, G = |b|^2 - 2 a.b exact from the f32 a and b
+    (csrc/chamfer_nn.cu, the margin for tau inside the sum)."""
+    from fpv4d_torch.ops import gram_nn
+    rng = np.random.RandomState(25)
+    x, y = _probe_case(case, rng)
+    xt = torch.as_tensor(x, device=cuda_device)
+    yt = torch.as_tensor(y, device=cuda_device)
+    c = xt[0]
+    a = (xt - c).double().cpu()
+    b, _ = gram_nn.centred_points(yt, c)
+    b = b.double().cpu()
+    G = (b ** 2).sum(1)[None] - 2 * a @ b.T
+    e_a, e_b = gram_nn.EPS["bf16"]
+    terms = (e_a * 2 * a.norm(dim=1)[:, None] * b.norm(dim=1)[None]
+             + e_b * b.norm(dim=1)[None] ** 2 + gram_nn.ABS)
+    zero = torch.zeros(len(x), device=cuda_device)
+    F = K.filter_probe(xt, yt, zero).double().cpu()
+    assert bool(((F - G).abs() <= terms).all()), float(
+        ((F - G).abs() / terms).max())
+    tau = G.min(1).values * (1 + 1e-4 * torch.as_tensor(
+        rng.randn(len(x))).double())
+    neg = (-tau).float()
+    D = K.filter_probe(xt, yt, neg.to(cuda_device)).double().cpu()
+    tau = -neg.double()
+    err = (D - (G - tau[:, None])).abs()
+    bound = terms + 1.03 * 2.0 ** -16 * tau.abs()[:, None]
+    assert bool((err <= bound).all()), float((err / bound).max())
+    # a value the margin puts below zero comes out negative
+    sure = (G - tau[:, None]) < -bound
+    assert bool((D[sure] < 0).all())

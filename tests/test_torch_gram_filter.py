@@ -65,6 +65,8 @@ def _k2_case(name):
     x = _legs()
     if name == "scale 1":
         return x, y
+    if name == "shuffled floor":
+        return x, y[np.random.RandomState(3).permutation(len(y))]
     if name == "scale 40, +100":
         return x * 40 + 100, y * 40 + 100
     if name == "far queries":
@@ -83,7 +85,7 @@ def _k2_case(name):
     raise KeyError(name)
 
 
-K2_CASES = ["scale 1", "scale 40, +100", "far queries", "duplicates",
+K2_CASES = ["scale 1", "shuffled floor", "scale 40, +100", "far queries", "duplicates",
             "queries equal to points", "near +-1000", "sphere, 1 ulp",
             "equidistant, 1 ulp apart"]
 
@@ -120,6 +122,46 @@ def test_k2_winner_passes_on_random_clouds(seed, scale, offset, n, m):
     y[rng.randint(0, m, size=m // 4)] = y[rng.randint(0, m, size=m // 4)]
     won, _ = K.filter_emulated(torch.as_tensor(x), torch.as_tensor(y))
     assert bool(won.all())
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 2 ** 31 - 1),
+       scale=st.sampled_from([1e-40, 1e-30, 1e-20, 1e-6, 1.0, 1e6, 1e30]))
+def test_threshold_splits_into_three_exact_parts(seed, scale):
+    """K2 folds -tau into the product as three parts of the split's type
+    whose sum is -tau exactly (gram_nn.split3, csrc/chamfer_nn.cu), but
+    for a part that falls below the type's normal range, which the
+    margin's absolute floor (1e-20) covers."""
+    rng = np.random.RandomState(seed)
+    v = torch.as_tensor((rng.randn(500) * scale).astype(np.float32))
+    for kind in KINDS:
+        parts = gram_nn.split3(v, kind)
+        for p in parts:
+            assert torch.equal(gram_nn.split(p, kind)[0], p)
+        err = (sum(p.double() for p in parts) - v.double()).abs()
+        normal = v.abs() >= 2.0 ** -100
+        assert bool((err[normal] == 0).all())
+        assert bool((err <= gram_nn.ABS).all())
+
+
+def test_neg_tau_covers_theta_and_marks_rows_without_a_bound():
+    th = torch.tensor([-3.0, -1e-8, 0.0, 1e-8, 0.25, 7.0, float("inf")])
+    neg = gram_nn.neg_tau(th)
+    assert bool((-neg[:-1].double() > th[:-1].double()).all())
+    assert float(neg[-1]) == gram_nn.NO_BOUND
+
+
+@pytest.mark.parametrize("case", K2_CASES)
+def test_k2_folded_filter_passes_what_the_margin_passes(case):
+    """With tau (neg_tau) folded into the sum, every point with
+    F~ <= theta still passes: the folded filter only ever adds re-checks
+    to the unfolded one."""
+    x, y = (torch.as_tensor(t) for t in _k2_case(case))
+    xb = x[:K.BLOCK_QUERIES]
+    d = K.dist_sq_qm(xb, y)
+    _, n_plain = gram_nn.block_passes(xb, y, d)
+    _, n_folded = gram_nn.block_passes(xb, y, d, folded=True)
+    assert bool((n_folded >= n_plain).all())
 
 
 def _k1_tables(T=4, N=300, P=192, seed=3, scale=1.0):
