@@ -268,6 +268,7 @@ nvidia-smi line; the last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when no CUDA device is available or when
 the fpv4d_torch package is not beside the script.
 """
+import collections
 import json
 import os
 import pickle
@@ -423,33 +424,39 @@ def _sphere(centre, n, dev):
     return y.contiguous()
 
 
-def _reset_counts(C, K):
-    from fpv4d_torch.ops import adam_cuda as AC
-    from fpv4d_torch.ops import skin_cuda as S
+def _counted(fn):
+    """fn() under the port's trace (utils/observability.py: spans and
+    counters, no section marks), the counters reset just before it and
+    the card synchronised after it -> (its result, its seconds, the
+    counters: each kernel's launches as ``<k>/cuda``, k1, k2, skin and
+    adam, counted through graph replays)."""
+    from fpv4d_torch.utils import observability as OBS
     torch.cuda.synchronize()
-    C.launches = 0
-    K.launches = 0
-    S.launches = 0
-    AC.launches = 0
+    OBS.reset_counts()
+    t0 = time.perf_counter()
+    with OBS.tracing():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, OBS.counts()
 
 
-def _run_fit(solver, prob, mode, C, K, expect, label):
-    """Drive fit(mode) with the counts at 0; check finite, decreasing
+def _k12(counts) -> tuple:
+    """(K1 launches, K2 launches) of a run's counters."""
+    return counts.get("k1/cuda", 0), counts.get("k2/cuda", 0)
+
+
+def _run_fit(solver, prob, mode, expect, label):
+    """Drive fit(mode), counted (_counted); check finite, decreasing
     per-phase losses and the launches of each kernel: K1 and K2 as
     expected, the skinning pair at least twice per contact step (a
     forward and a backward), and the Adam kernel at least once per step
-    of the histories. Returns (K1 launches, K2 launches, fit seconds,
-    loss histories, (body [T, 75], scale, camera_ext [T, 4, 4]) as
-    solved, the skinning pair's launches, the Adam kernel's)."""
-    from fpv4d_torch.ops import adam_cuda as AC
-    from fpv4d_torch.ops import skin_cuda as S
-    _reset_counts(C, K)
-    t0 = time.perf_counter()
-    final, hist = solver.fit(prob.body, prob.cam, mode=mode)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    got = (C.launches, K.launches)
-    n_skin, n_adam = S.launches, AC.launches
+    of the histories. Returns (the fit's counters, its seconds, loss
+    histories, (body [T, 75], scale, camera_ext [T, 4, 4]) as
+    solved)."""
+    (final, hist), fit_s, counts = _counted(
+        lambda: solver.fit(prob.body, prob.cam, mode=mode))
+    got = _k12(counts)
+    n_skin, n_adam = counts.get("skin/cuda", 0), counts.get("adam/cuda", 0)
     n_steps = sum(len(v) for v in hist.values())
     for k, v in hist.items():
         print(f"[{label}] {k}: {len(v)} steps, loss {v[0]:.6f} -> "
@@ -481,7 +488,7 @@ def _run_fit(solver, prob, mode, C, K, expect, label):
             and np.all(np.isfinite(cam))):
         raise AssertionError(f"{label}: final parameters not finite / "
                              "wrong shape")
-    return got[0], got[1], fit_s, hist, (body, scale, cam), n_skin, n_adam
+    return counts, fit_s, hist, (body, scale, cam)
 
 
 def _hold_histories(hg, hc, label, what="cuda vs cpu", watch=()):
@@ -622,8 +629,8 @@ def _mpjpe_mm(model, vp, params: np.ndarray, truth, dev) -> np.ndarray:
     return err.cpu().numpy() * 1e3
 
 
-def _run_keypoints(label, model, vp, kp, cfg, C, K, **kw):
-    """One fit_keypoints with both counts at 0: finite losses, each
+def _run_keypoints(label, model, vp, kp, cfg, **kw):
+    """One fit_keypoints, counted (_counted): finite losses, each
     stage's last below its first (every clip), no kernel launched.
     The per-frame L-BFGS's history is the mean over frames of each
     frame's value, and a frame whose 16 backtracking trials all fail
@@ -633,14 +640,11 @@ def _run_keypoints(label, model, vp, kp, cfg, C, K, **kw):
     recovery instead (``_keypoint_phase``). Returns (params, hist,
     seconds)."""
     from fpv4d_torch.solve import keypoint_fit
-    _reset_counts(C, K)
-    t0 = time.perf_counter()
-    params, hist = keypoint_fit.fit_keypoints(
-        model, vp, kp, cfg, device=model.v_template.device, **kw)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    (params, hist), secs, counts = _counted(
+        lambda: keypoint_fit.fit_keypoints(
+            model, vp, kp, cfg, device=model.v_template.device, **kw))
     frames = int(np.prod(kp.shape[:-2]))
-    got = (C.launches, K.launches)
+    got = _k12(counts)
     cap = {k: round(v, 4) for k, v in keypoint_fit.capture_seconds.items()}
     print(f"[{label}] {cfg.optimizer}, {cfg.num_iter} steps per stage, "
           f"{frames} frames: {secs:.3f} s, {frames / secs:.1f} frames/s; "
@@ -711,7 +715,7 @@ def _hands_face_fixture(model, vp, T: int, dev, seed: int = 5):
     return kp.astype(np.float32), hands[0], hands[1], face
 
 
-def _keypoint_phase(model, vp, dev, C, K):
+def _keypoint_phase(model, vp, dev):
     """Phase 10 on the standard problem's model and VPoser weights.
     Returns the Adam fit's [900, 75] parameters and the inputs of its
     three Adam fits (phase 33 runs them again on both routes)."""
@@ -724,7 +728,7 @@ def _keypoint_phase(model, vp, dev, C, K):
     for name, iters in (("adam", kcfg.num_iter), ("lbfgs", 60),
                         ("lbfgs_perframe", 40)):
         cfg = KeypointFitConfig(num_iter=iters, optimizer=name)
-        params, _, _ = _run_keypoints("keypoints", model, vp, kp, cfg, C, K)
+        params, _, _ = _run_keypoints("keypoints", model, vp, kp, cfg)
         err = _mpjpe_mm(model, vp, params, truth, dev)
         print(f"[keypoints] {name}: MPJPE {err.mean():.3f} mm (median "
               f"{np.median(err):.3f}, {int((err > 100).sum())} of {T} "
@@ -743,14 +747,14 @@ def _keypoint_phase(model, vp, dev, C, K):
     kp_b[..., :2] += np.random.RandomState(2).randn(
         *kp_b[..., :2].shape).astype(np.float32)
     params_b, _, _ = _run_keypoints("keypoints/batched", model, vp, kp_b,
-                                    kcfg, C, K)
+                                    kcfg)
     if params_b.shape != (clips, T, 75):
         raise AssertionError("batched fit: wrong shape")
 
     # hands and face at T=60: the landmark path
     kp60, hl, hr, face = _hands_face_fixture(model, vp, 60, dev)
     _, hist, _ = _run_keypoints("keypoints/hands+face", model, vp, kp60,
-                                KeypointFitConfig(num_iter=120), C, K,
+                                KeypointFitConfig(num_iter=120),
                                 hand_left=hl, hand_right=hr, face=face)
     jaw, expr = hist["jaw"], hist["expression"]
     print(f"[keypoints/hands+face] |jaw| {np.abs(jaw).mean():.4f}, "
@@ -769,7 +773,7 @@ def _frame_diff(x: np.ndarray) -> float:
     return float(np.mean(np.abs(np.diff(x[:, 6:48], axis=0))))
 
 
-def _smoother_phase(body: np.ndarray, dev, C, K):
+def _smoother_phase(body: np.ndarray, dev):
     """Phase 11 on the keypoint fit's [900, 75] result: the sequential
     variants on its first 300 frames, the reference's clip length."""
     from fpv4d_torch.models import motion_gru
@@ -785,12 +789,8 @@ def _smoother_phase(body: np.ndarray, dev, C, K):
              f"{T_seq * 50} sequential Adam steps",
              lambda b: frame_fit.fit_sequential_motion(b, gru, device=dev)))
     for name, b, steps, fn in runs:
-        _reset_counts(C, K)
-        t0 = time.perf_counter()
-        out = fn(b)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        got = (C.launches, K.launches)
+        out, secs, counts = _counted(lambda: fn(b))
+        got = _k12(counts)
         print(f"[smoother] {name}: T={len(b)}, {secs:.3f} s ({steps}), "
               f"frame diff "
               f"{_frame_diff(b):.5f} -> {_frame_diff(out):.5f}, max |out - "
@@ -1013,19 +1013,16 @@ def _fleet_kernels(C, K, solver, prob, dev):
     return k1, (k2_err, ms, plain_ms, lib_ms, bound_ms, bound_by)
 
 
-def _run_fleet(mc, bodies, cams, scenes, mode, C, K, expect, label):
-    """One MultiClipSolver.fit with both counts at 0 and every stage
-    fenced: each clip's losses finite and each phase ending below where
+def _run_fleet(mc, bodies, cams, scenes, mode, expect, label):
+    """One MultiClipSolver.fit, counted (_counted), every stage fenced:
+    each clip's losses finite and each phase ending below where
     it began, the launches of each kernel. Returns (seconds, histories,
     final state, stage timings)."""
-    _reset_counts(C, K)
     torch.cuda.reset_peak_memory_stats()
     tm = {}
-    t0 = time.perf_counter()
-    state_b, hist = mc.fit(bodies, cams, scenes, mode=mode, timings=tm)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    got = (C.launches, K.launches)
+    (state_b, hist), secs, counts = _counted(
+        lambda: mc.fit(bodies, cams, scenes, mode=mode, timings=tm))
+    got = _k12(counts)
     clips = bodies.shape[0]
     fences = tm.pop("_fences")
     for k, v in hist.items():
@@ -1053,7 +1050,7 @@ def _run_fleet(mc, bodies, cams, scenes, mode, C, K, expect, label):
     return secs, hist, state_b, tm
 
 
-def _fleet_phases(C, K, prob, dev, local_s, local_hist, n_a, n_dct_b):
+def _fleet_phases(prob, dev, local_s, local_hist, n_a, n_dct_b):
     """Phases 15-18. Returns the K1 launches of the local fleet and the
     K2 launches of the global/brute fleet."""
     from fpv4d_torch.io import native
@@ -1066,7 +1063,7 @@ def _fleet_phases(C, K, prob, dev, local_s, local_hist, n_a, n_dct_b):
     mc = MultiClipSolver(solver=prob.solver)
     native.builds = 0
     secs, hist, state2, tm2 = _run_fleet(mc, bodies, cams, scenes, "local",
-                                         C, K, (n_a, 0), "fleet/local")
+                                         (n_a, 0), "fleet/local")
     print(f"[fleet/local] grids: {native.builds} native builds for "
           f"{clips} clips in {tm2['grids']:.3f} s", flush=True)
     if native.builds != clips:
@@ -1079,8 +1076,8 @@ def _fleet_phases(C, K, prob, dev, local_s, local_hist, n_a, n_dct_b):
     _hold_histories({k: v[:, 0] for k, v in hist.items()}, local_hist,
                     "fleet/local clip 0", "fleet vs single solve")
     mc.skate_clip_chunk = 0
-    _, hist0, state0, tm0 = _run_fleet(mc, bodies, cams, scenes, "local", C,
-                                       K, (n_a, 0), "fleet/local, skate "
+    _, hist0, state0, tm0 = _run_fleet(mc, bodies, cams, scenes, "local",
+                                       (n_a, 0), "fleet/local, skate "
                                        "unchunked")
     print(f"[fleet/local] skate phase {tm2['skate']:.3f} s in chunks of 2, "
           f"{tm0['skate']:.3f} s unchunked; grid cache hits "
@@ -1099,14 +1096,13 @@ def _fleet_phases(C, K, prob, dev, local_s, local_hist, n_a, n_dct_b):
     prob_b = standard_problem(device=dev, nn_impl="brute")
     bodies2, cams2, scenes2 = fleet_batch(prob_b, 2)
     _run_fleet(MultiClipSolver(solver=prob_b.solver), bodies2, cams2,
-               scenes2, "global", C, K, (0, n_a), "fleet/global/brute")
+               scenes2, "global", (0, n_a), "fleet/global/brute")
     k2_launches = n_a
     del prob_b
     torch.cuda.empty_cache()
 
     # 17. dct with the grid, 8 clips at full length
-    _run_fleet(mc, bodies, cams, scenes, "dct", C, K, (n_dct_b, 0),
-               "fleet/dct")
+    _run_fleet(mc, bodies, cams, scenes, "dct", (n_dct_b, 0), "fleet/dct")
 
     # 18. a small fleet on the card and on the CPU
     for mode, nn_impl in (("local", "grid"), ("global", "brute")):
@@ -1257,12 +1253,11 @@ def _frames_problem(dev, mode, twin=False):
 
 def _frames_fit(mesh, dev, mode, step_graphs=None, twin=False):
     """One fenced fit of the standard clip on the frames mesh (the
-    default route, or step_graphs=False): its seconds, histories, stage
-    timings, K1 and K2 launches, native grid builds, whole-leaf spread,
-    capture seconds per key, peak memory and final leaves."""
+    default route, or step_graphs=False), counted (_counted): its
+    seconds, histories, stage timings, counters, native grid builds,
+    whole-leaf spread, capture seconds per key, peak memory and final
+    leaves."""
     from fpv4d_torch.io import native
-    from fpv4d_torch.ops import cand_cuda as C
-    from fpv4d_torch.ops import chamfer_cuda as K
     from fpv4d_torch.parallel.multi_clip import MultiClipSolver, pad_scenes
     prob = _frames_problem(dev, mode, twin)
     if prob.solver.device != dev:
@@ -1273,16 +1268,12 @@ def _frames_fit(mesh, dev, mode, step_graphs=None, twin=False):
     native.builds = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts(C, K)
     tm = {}
-    t0 = time.perf_counter()
-    state_b, hist = mc.fit(prob.body[None], prob.cam[None],
-                           pad_scenes([prob.scene]), mode=mode, timings=tm)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = (C.launches, K.launches)
+    (state_b, hist), seconds, counts = _counted(lambda: mc.fit(
+        prob.body[None], prob.cam[None], pad_scenes([prob.scene]),
+        mode=mode, timings=tm))
     return dict(
-        seconds=seconds, hist=hist, timings=tm, launches=launches,
+        seconds=seconds, hist=hist, timings=tm, counts=counts,
         native_builds=native.builds, spread=dict(mc.whole_leaf_spread),
         finite=all(bool(torch.isfinite(x).all()) for x in state_b),
         shapes=[tuple(x.shape) for x in state_b],
@@ -1470,8 +1461,8 @@ def _frames_phase(C, K, prob, dev, local_hist, local_seconds, tmp,
             print(f"[frames/{run}] rank {r}: {m['seconds']:.3f} s, stages "
                   f"(s) {stages}, ms per step {per_step} "
                   f"({ {k: len(v) for k, v in m['hist'].items()} } steps); "
-                  f"peak {m['peak_gib']:.3f} GiB; K1 launches "
-                  f"{m['launches'][0]}, K2 launches {m['launches'][1]} "
+                  f"peak {m['peak_gib']:.3f} GiB; K1, K2 launches "
+                  f"{_k12(m['counts'])} "
                   f"(expected {depth(mode, twin)}); native grid builds "
                   f"{m['native_builds']}; whole-leaf spread per phase "
                   f"{m['spread']}", flush=True)
@@ -1482,7 +1473,7 @@ def _frames_phase(C, K, prob, dev, local_hist, local_seconds, tmp,
             if run.endswith("eager") == bool(m["captures"]):
                 raise AssertionError(f"frames/{run} rank {r}: took the "
                                      "wrong route")
-            if tuple(m["launches"]) != depth(mode, twin):
+            if _k12(m["counts"]) != depth(mode, twin):
                 raise AssertionError(f"frames/{run} rank {r}: launches")
             if m["native_builds"] != (0 if mode == "global" else 1):
                 raise AssertionError(f"frames/{run} rank {r}: the grid did "
@@ -1514,14 +1505,14 @@ def _frames_phase(C, K, prob, dev, local_hist, local_seconds, tmp,
             print(f"[frames/{mode}] rank {r}: graph vs eager at "
                   f"{ {k: len(v) for k, v in e['hist'].items()} } steps: "
                   f"bit-equal={same} (largest leaf difference {worst:.3e}); "
-                  f"launches {g['launches']} / {e['launches']}; "
+                  f"launches {_k12(g['counts'])} / {_k12(e['counts'])}; "
                   f"{g['seconds']:.3f} / {e['seconds']:.3f} s; peak "
                   f"{g['peak_gib']:.3f} / {e['peak_gib']:.3f} GiB",
                   flush=True)
             if not same:
                 raise AssertionError(f"frames/{mode} rank {r}: the graph "
                                      "route parted from the eager route")
-            if g["launches"] != e["launches"]:
+            if _k12(g["counts"]) != _k12(e["counts"]):
                 raise AssertionError(f"frames/{mode} rank {r}: launches "
                                      "differ between the routes")
     print(f"[frames/local] one-rank solve (phase 5) stages (s) "
@@ -1536,17 +1527,14 @@ def _frames_phase(C, K, prob, dev, local_hist, local_seconds, tmp,
     # the one-rank fold at the same depth
     for mode in ("global", "dct"):
         p1 = _frames_problem(dev, mode)
-        _reset_counts(C, K)
         tm = {}
-        t0 = time.perf_counter()
-        _, h1 = MultiClipSolver(solver=p1.solver).fit(
-            p1.body[None], p1.cam[None], pad_scenes([p1.scene]), mode=mode,
-            timings=tm)
-        torch.cuda.synchronize()
-        if (C.launches, K.launches) != depth(mode):
+        (_, h1), secs, counts = _counted(lambda: MultiClipSolver(
+            solver=p1.solver).fit(p1.body[None], p1.cam[None],
+                                  pad_scenes([p1.scene]), mode=mode,
+                                  timings=tm))
+        if _k12(counts) != depth(mode):
             raise AssertionError(f"one-rank {mode}: launches")
-        print(f"[frames/{mode}] one-rank fold: {time.perf_counter() - t0:.3f}"
-              f" s, stages (s) "
+        print(f"[frames/{mode}] one-rank fold: {secs:.3f} s, stages (s) "
               f"{ {k: round(v, 3) for k, v in tm.items() if k != '_fences'} }",
               flush=True)
         for r, res in enumerate(ranks):
@@ -2162,7 +2150,7 @@ def _grad_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / (b.abs().max() + 1e-6))
 
 
-def _fk_phase(prob, dev, state, C, K, n_a):
+def _fk_phase(prob, dev, state, n_a):
     """Phase 26: the hand-written FK adjoint against autograd on the
     standard model's 55-joint tree at B = 900, then both in the local_a
     model block (forward_world on the contact subset, fwd + bwd), then
@@ -2242,8 +2230,8 @@ def _fk_phase(prob, dev, state, C, K, n_a):
             fk.rigid_transform_prod = (fk.rigid_transform
                                        if name == "adjoint"
                                        else fk.rigid_transform_ref)
-            _, _, fit_s, hist, _, _, _ = _run_fit(
-                solver, prob, "local", C, K, (n_a, 0), f"local/FK {name}")
+            _, fit_s, hist, _ = _run_fit(solver, prob, "local", (n_a, 0),
+                                         f"local/FK {name}")
             fits[name].append((fit_s, dict(solver.phase_seconds), hist))
     finally:
         fk.rigid_transform_prod = saved
@@ -2413,20 +2401,16 @@ def _observability_phase(prob, dev, C, tmp: Path):
     obs.checked(torch.exp, x)
 
 
-def _accuracy_phase(C, K):
+def _accuracy_phase():
     """Phase 30: the ground-truth recovery report at the paper's 300
     frames and the standard model's width, both keypoint optimizers;
     tests/test_accuracy.py's thresholds; K1 launched once per local_a
     step of its clip solve."""
     from fpv4d_torch.config import ClipConfig
     from fpv4d_torch.utils import accuracy_report
-    _reset_counts(C, K)
-    t0 = time.perf_counter()
-    r = accuracy_report.run(frames=300, num_verts=10475, optimizer="both",
-                            device="cuda")
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    got = (C.launches, K.launches)
+    r, secs, counts = _counted(lambda: accuracy_report.run(
+        frames=300, num_verts=10475, optimizer="both", device="cuda"))
+    got = _k12(counts)
     cfg = ClipConfig(num_iter=r["clip_iters"])
     want = (int(cfg.num_iter * cfg.stage_split), 0)
     print(f"[accuracy] T={r['frames']} V=10475 in {secs:.2f} s: "
@@ -2555,11 +2539,11 @@ def _refresh_ms(solver, state, phase, graphs, reps=20):
     return ms, tables
 
 
-def _compiled_phase(prob, dev, C, K, n_a, n_dct_b):
+def _compiled_phase(prob, dev, n_a, n_dct_b):
     """Phase 32: the compiled phase. The standard local fit four times in
     turns, eager (step_graphs=False), graph, graph, eager; then
     global/brute and dct/grid once on each route (graph first). Each run
-    with both counts at 0 and the peak memory reset: per phase the wall
+    counted (_counted), the peak memory reset: per phase the wall
     ms per step, the fit's seconds, the capture seconds (the captured
     refresh and detection among them), the peak memory and the
     launches; each graph run's histories held to the eager run's by
@@ -2574,12 +2558,9 @@ def _compiled_phase(prob, dev, C, K, n_a, n_dct_b):
         solver.step_graphs = graphs
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        _reset_counts(C, K)
-        t0 = time.perf_counter()
-        final, hist = solver.fit(pr.body, pr.cam, mode=mode)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        got = (C.launches, K.launches)
+        (final, hist), secs, counts = _counted(
+            lambda: solver.fit(pr.body, pr.cam, mode=mode))
+        got = _k12(counts)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         ms = {k: round(solver.phase_seconds[k] / len(v) * 1e3, 3)
               for k, v in hist.items()}
@@ -2655,13 +2636,13 @@ def _compiled_phase(prob, dev, C, K, n_a, n_dct_b):
     return out
 
 
-def _frame_stages_phase(model, vp, kp_fits, body, dev, C, K):
+def _frame_stages_phase(model, vp, kp_fits, body, dev):
     """Phase 33: the compiled per-frame stages. Each of phase 10's three
     Adam keypoint fits (T = 900, 8 x 900 batched, hands and face at T =
     60) and each smoother (fit_independent at T = 900, fit_sequential and
     fit_sequential_motion at T = 100 of phase 10's fit) on both routes,
-    graph first, then eager (step_graphs=False). Per run, with both counts
-    at 0 and the peak memory reset: seconds, frames/s, the capture
+    graph first, then eager (step_graphs=False). Per run, counted
+    (_counted), the peak memory reset: seconds, frames/s, the capture
     seconds per key (present on the graph route only), the peak memory,
     K1 and K2 launches (0 and 0); per pair, whether graph and eager are
     bit-equal. Holds: keypoint histories within phase 12's 1e-3
@@ -2674,12 +2655,8 @@ def _frame_stages_phase(model, vp, kp_fits, body, dev, C, K):
     def timed(label, route, fn, captures, frames):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        _reset_counts(C, K)
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        got = (C.launches, K.launches)
+        out, secs, counts = _counted(fn)
+        got = _k12(counts)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         cap = {k: round(v, 4) for k, v in captures.items()}
         print(f"[frame stages] {label} {route}: {secs:.3f} s, "
@@ -2704,7 +2681,7 @@ def _frame_stages_phase(model, vp, kp_fits, body, dev, C, K):
             (params, hist, _), rec = timed(
                 f"keypoints {label}", route, lambda: _run_keypoints(
                     f"frame stages/keypoints {label} {route}", model, vp,
-                    kp, cfg, C, K, step_graphs=graphs, **kw),
+                    kp, cfg, step_graphs=graphs, **kw),
                 keypoint_fit.capture_seconds, frames)
             runs[route] = (params, hist, rec)
         (pg, hg, _), (pe, he, _) = runs["graph"], runs["eager"]
@@ -2758,13 +2735,13 @@ def _frame_stages_phase(model, vp, kp_fits, body, dev, C, K):
     return records
 
 
-def _lbfgs_phase(model, vp, kp_fits, dev, C, K):
+def _lbfgs_phase(model, vp, kp_fits, dev):
     """Phase 34: the compiled L-BFGS stages. The joint L-BFGS (60
     iterations per stage) and the per-frame L-BFGS (40) at T = 900 on
     phase 10's keypoints, and the joint L-BFGS of 2 x 900 batched
     (phase 10's first two clips), each graph first, then eager
-    (step_graphs=False). Per run, with both counts at 0 and the peak
-    memory reset: seconds, frames/s, capture seconds per stage (graph
+    (step_graphs=False). Per run, counted (_counted), the peak memory
+    reset: seconds, frames/s, capture seconds per stage (graph
     route only), line-search rounds per iteration (mean and max), peak
     memory, K1 0 and K2 0 (_run_keypoints); per pair, whether graph and
     eager are bit-equal (parameters and histories), which they must be,
@@ -2791,7 +2768,7 @@ def _lbfgs_phase(model, vp, kp_fits, dev, C, K):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             params, hist, secs = _run_keypoints(
-                f"lbfgs {label} {route}", model, vp, kp_, cfg, C, K,
+                f"lbfgs {label} {route}", model, vp, kp_, cfg,
                 step_graphs=graphs)
             cap = {k: round(v, 4)
                    for k, v in keypoint_fit.capture_seconds.items()}
@@ -2992,9 +2969,10 @@ def main() -> int:
     n_dct_b = cfg.num_iter_dct - int(cfg.num_iter_dct * cfg.dct_split)
 
     # 5. the local path (the main path of the first slice)
-    (k1_launches, _, local_s, local_hist, local_solved, skin_launches,
-     adam_launches) = _run_fit(solver, prob, "local", C, K, (n_a, 0),
-                               "local")
+    counts, local_s, local_hist, local_solved = _run_fit(
+        solver, prob, "local", (n_a, 0), "local")
+    k1_launches = _k12(counts)[0]
+    routes = collections.Counter(counts)
     local_seconds = dict(solver.phase_seconds)
 
     # 6. global: brute-force contact NN (K2), then the grid (K1)
@@ -3003,26 +2981,22 @@ def main() -> int:
     print(f"[setup] brute-force standard problem in "
           f"{time.perf_counter() - t0:.2f} s (no voxel grid: "
           f"{prob_b.solver.grid is None})", flush=True)
-    _, k2_launches, _, _, _, n_skin, n_adam = _run_fit(
-        prob_b.solver, prob_b, "global", C, K, (0, n_a), "global/brute")
-    skin_launches += n_skin
-    adam_launches += n_adam
+    counts = _run_fit(prob_b.solver, prob_b, "global", (0, n_a),
+                      "global/brute")[0]
+    k2_launches = _k12(counts)[1]
+    routes.update(counts)
     del prob_b
     torch.cuda.empty_cache()
-    n_skin, n_adam = _run_fit(solver, prob, "global", C, K, (n_a, 0),
-                              "global/grid")[-2:]
-    skin_launches += n_skin
-    adam_launches += n_adam
+    routes.update(_run_fit(solver, prob, "global", (n_a, 0),
+                           "global/grid")[0])
 
     # 7. dct with the grid, at full length
-    n_skin, n_adam = _run_fit(solver, prob, "dct", C, K, (n_dct_b, 0),
-                              "dct/grid")[-2:]
-    skin_launches += n_skin
-    adam_launches += n_adam
+    routes.update(_run_fit(solver, prob, "dct", (n_dct_b, 0),
+                           "dct/grid")[0])
     for entry in skin:
-        entry["launches"] = skin_launches
+        entry["launches"] = routes["skin/cuda"]
     for entry in adam:
-        entry["launches"] = adam_launches
+        entry["launches"] = routes["adam/cuda"]
 
     # 8. small solves on the card agree with the same solves on the CPU
     for mode, nn_impl in (("local", "grid"), ("global", "brute"),
@@ -3034,8 +3008,8 @@ def main() -> int:
         _cli_on_card(Path(tmp))
 
     # 10-11. the keypoint fit and the smoother at full width
-    body_fit, kp_fits = _keypoint_phase(prob.model, prob.vp, dev, C, K)
-    _smoother_phase(body_fit, dev, C, K)
+    body_fit, kp_fits = _keypoint_phase(prob.model, prob.vp, dev)
+    _smoother_phase(body_fit, dev)
 
     # 12. the same small stages on the card and on the CPU
     _stages_card_vs_cpu(dev)
@@ -3051,7 +3025,7 @@ def main() -> int:
     # 15-18. the fleet: local/grid (8 x 900), global/brute (2 x 900),
     # dct/grid (8 x 900), and a small fleet on the card and on the CPU
     k1_fleet_launches, k2_fleet_launches = _fleet_phases(
-        C, K, prob, dev, local_s, local_hist, n_a, n_dct_b)
+        prob, dev, local_s, local_hist, n_a, n_dct_b)
 
     # 19. multiopt on the card, alone and in a one-rank NCCL group; 20.
     # the native grid; 21-22. the frames axis: two gloo ranks on the card,
@@ -3077,7 +3051,7 @@ def main() -> int:
     # 26. the FK adjoint; 27. the library; 28. the native io; 29.
     # observability; 30. the ground-truth accuracy report
     t_lib = time.perf_counter()
-    _fk_phase(prob, dev, state, C, K, n_a)
+    _fk_phase(prob, dev, state, n_a)
     q = _contact_queries(solver, state)
     _library_phase(prob, dev, K, q, k2_ms, local_hist)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3085,7 +3059,7 @@ def main() -> int:
         del q
         torch.cuda.empty_cache()
         _observability_phase(prob, dev, C, Path(tmp))
-    _accuracy_phase(C, K)
+    _accuracy_phase()
     print(f"[library] phases 26-30 in {time.perf_counter() - t_lib:.2f} s",
           flush=True)
 
@@ -3095,15 +3069,15 @@ def main() -> int:
 
     # 32. the compiled phase: graph against eager
     torch.cuda.empty_cache()
-    _compiled_phase(prob, dev, C, K, n_a, n_dct_b)
+    _compiled_phase(prob, dev, n_a, n_dct_b)
 
     # 33. the compiled per-frame stages: graph against eager
     torch.cuda.empty_cache()
-    _frame_stages_phase(prob.model, prob.vp, kp_fits, body_fit, dev, C, K)
+    _frame_stages_phase(prob.model, prob.vp, kp_fits, body_fit, dev)
 
     # 34. the compiled L-BFGS stages: graph against eager
     torch.cuda.empty_cache()
-    _lbfgs_phase(prob.model, prob.vp, kp_fits, dev, C, K)
+    _lbfgs_phase(prob.model, prob.vp, kp_fits, dev)
     print(f"[done] phases 1-34 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

@@ -63,6 +63,7 @@ from fpv4d_torch.ops import cuda_build
 from fpv4d_torch.ops import skin_cuda
 from fpv4d_torch.solve.clip_solve import ClipSolver, ClipState, forward_world
 from fpv4d_torch.utils import cost
+from fpv4d_torch.utils import observability as OBS
 from fpv4d_torch.utils.bench_problem import keypoint_problem, standard_problem
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -202,14 +203,17 @@ def shares(flops: float, nbytes: float, sec_per_step: float,
 
 
 def counted(fn, dev: torch.device):
-    """fn() with both kernels' counts set to 0 just before it and read
-    just after: (seconds to the card's end, its result, (K1, K2))."""
+    """fn() under the port's trace (utils/observability.py), its counters
+    reset just before it and read just after: (seconds to the card's
+    end, its result, (K1, K2) launches)."""
     _sync(dev)
-    C.launches = K.launches = 0
+    OBS.reset_counts()
     t0 = time.perf_counter()
-    out = fn()
+    with OBS.tracing():
+        out = fn()
     _sync(dev)
-    return time.perf_counter() - t0, out, (C.launches, K.launches)
+    dt, got = time.perf_counter() - t0, OBS.counts()
+    return dt, out, (got.get("k1/cuda", 0), got.get("k2/cuda", 0))
 
 
 def fit_counted(fit, mode: str, label: str, solver: ClipSolver,

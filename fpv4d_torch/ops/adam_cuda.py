@@ -15,7 +15,8 @@ The step is the plain route's arithmetic, operation by operation with
 no FMA contraction, and it writes each gradient 0 after reading it (the
 plain route's ``zero_grad`` is folded into the launch). The kernel is
 built with nvcc at first use (``build()``, see ops/cuda_build.py);
-importing this module needs no CUDA toolkit.
+importing this module needs no CUDA toolkit. While tracing is on
+(utils/observability.py) each launch counts ``adam/cuda``.
 """
 from __future__ import annotations
 
@@ -28,10 +29,7 @@ import numpy as np
 import torch
 
 from fpv4d_torch.ops import cuda_build
-
-# kernel launches since the count was last reset (a plain integer: a run
-# sets it to 0 and reads it back to show the path used the kernel)
-launches = 0
+from fpv4d_torch.utils import observability as OBS
 
 SRC = cuda_build.CSRC / "adam_step.cu"
 _step = None            # the kernel's C entry point, once built
@@ -106,7 +104,6 @@ def step(table: LeafTable, count: torch.Tensor, lr: float, b1: float,
          b2: float, eps: float) -> None:
     """One Adam step of every leaf in `table` (the count advanced by
     one, every gradient left 0) on the current stream."""
-    global launches
     build()
     f32 = ctypes.c_float
     err = _step(table.leaves.data_ptr(), table.chunks.data_ptr(),
@@ -116,4 +113,4 @@ def step(table: LeafTable, count: torch.Tensor, lr: float, b1: float,
                 torch.cuda.current_stream(count.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"adam_step launch failed: CUDA error {err}")
-    launches += 1
+    OBS.count("adam/cuda")

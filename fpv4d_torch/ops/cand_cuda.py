@@ -21,6 +21,10 @@ its slots exactly with the 1e4 rule. It is then bit-identical to
 ``cand_nn_plain`` on the card. ``filter_emulated`` repeats the filter in
 plain PyTorch (ops/gram_nn.py) for the CPU tests.
 
+While tracing is on (utils/observability.py) each launch of the kernel
+counts ``k1/cuda`` and each call of ``cand_nn`` on CPU tensors
+``k1/plain``.
+
 The kernel is built with nvcc at first use (``build()``, see
 ops/cuda_build.py) from the source in the repository into
 ``fpv4d_torch/_build/`` (git-ignored) as a shared library with a plain C
@@ -35,15 +39,12 @@ from typing import Optional, Tuple
 import torch
 
 from fpv4d_torch.ops import cuda_build, gram_nn
+from fpv4d_torch.utils import observability as OBS
 
 BIG = 1e4
 
 # queries of a frame per block of the kernel, centred on the first
 BLOCK_QUERIES = 128
-
-# kernel launches since the count was last reset (a plain integer: a
-# run sets it to 0 and reads it back to show the path used the kernel)
-launches = 0
 
 SRC = cuda_build.CSRC / "cand_nn.cu"
 _launch = None          # the kernel's C entry point, once built
@@ -102,7 +103,6 @@ def cand_nn_cuda(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor,
     anything the kernel does not take. `rechecks`, an int32 [T, N]
     tensor on the same card, receives each query's number of exact
     evaluations (the solve path passes none)."""
-    global launches
     if not (q.is_cuda and cand.is_cuda and valid.is_cuda):
         raise ValueError("cand_nn_cuda takes CUDA tensors")
     if q.dtype != torch.float32 or cand.dtype != torch.float32 \
@@ -136,7 +136,7 @@ def cand_nn_cuda(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cand_nn kernel launch failed: CUDA error {err}")
-    launches += 1
+    OBS.count("k1/cuda")
     return dist, slot, nearest
 
 
@@ -169,6 +169,7 @@ def cand_nn(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor):
     tensors, the kernel for CUDA tensors (never a fallback)."""
     if q.is_cuda:
         return cand_nn_cuda(q, cand, valid)
+    OBS.count("k1/plain")
     return cand_nn_plain(q, cand, valid)
 
 

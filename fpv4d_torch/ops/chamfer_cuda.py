@@ -26,8 +26,9 @@ kernel is bit-identical to ``nn_distance_plain`` on the card.
 so the CPU tests can prove that the exact winner always passes it, and
 ``filter_probe`` (tests only) returns the card's raw filter values.
 
-``nn_index`` counts ``k2/cuda`` or ``k2/plain`` (utils/observability.py)
-while tracing is on: the kernel or the plain version.
+While tracing is on (utils/observability.py) each launch of the kernel
+counts ``k2/cuda`` and each call of ``nn_index`` on CPU tensors
+``k2/plain``.
 
 The kernel is built with nvcc at first use (``build()``, see
 ops/cuda_build.py); importing this module needs no CUDA toolkit.
@@ -41,10 +42,6 @@ import torch
 
 from fpv4d_torch.ops import cuda_build, gram_nn
 from fpv4d_torch.utils import observability as OBS
-
-# kernel launches since the count was last reset (a plain integer: a
-# run sets it to 0 and reads it back to show the path used the kernel)
-launches = 0
 
 SRC = cuda_build.CSRC / "chamfer_nn.cu"
 _launch = None          # the kernel's C entry point, once built
@@ -128,7 +125,6 @@ def nn_distance_cuda(x: torch.Tensor, y: torch.Tensor,
     anything the kernel does not take. `rechecks`, an int32 tensor of
     x's batch shape on the same card, receives each query's number of
     exact re-evaluations (the solve path passes none)."""
-    global launches
     if not (x.is_cuda and y.is_cuda):
         raise ValueError("nn_distance_cuda takes CUDA tensors")
     if x.dtype != torch.float32 or y.dtype != torch.float32:
@@ -164,7 +160,7 @@ def nn_distance_cuda(x: torch.Tensor, y: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"chamfer_nn kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    OBS.count("k2/cuda")
     return dist, idx
 
 
@@ -228,7 +224,6 @@ def nn_index(x: torch.Tensor, y: torch.Tensor
     """Dispatch on the tensors' device: the plain version for CPU
     tensors, the kernel for CUDA tensors (never a fallback)."""
     if x.is_cuda:
-        OBS.count("k2/cuda")
         return nn_distance_cuda(x, y)
     OBS.count("k2/plain")
     return nn_distance_plain(x, y)

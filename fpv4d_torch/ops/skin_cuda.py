@@ -30,8 +30,10 @@ benchmark's reference by up to 5e-4 relative in 2 of 22 local-brute
 solves, against 3.5e-5 at most without the fold (PERF.md).
 
 ``skin`` takes the plain version for CPU tensors and the kernel for
-CUDA tensors (never a fallback), and counts ``skin/plain`` or
-``skin/cuda`` (utils/observability.py) while tracing is on. The kernel
+CUDA tensors (never a fallback). While tracing is on
+(utils/observability.py) each launch of the forward or the backward
+counts ``skin/cuda`` and each call of ``skin`` on CPU tensors
+``skin/plain``. The kernel
 is built with nvcc at first use (``build()``, see ops/cuda_build.py);
 importing this module needs no CUDA toolkit.
 """
@@ -46,11 +48,6 @@ import torch
 
 from fpv4d_torch.ops import cuda_build
 from fpv4d_torch.utils import observability as OBS
-
-# kernel launches (forward and backward calls) since the count was last
-# reset (a plain integer: a run sets it to 0 and reads it back to show
-# the path used the kernel)
-launches = 0
 
 SRC = cuda_build.CSRC / "lbs_skin.cu"
 _forward = None         # the kernels' C entry points, once built
@@ -168,7 +165,6 @@ def skin_cuda_forward(A: torch.Tensor, o: Optional[torch.Tensor],
                       ) -> torch.Tensor:
     """The forward kernel (no gradient): A [B, J, 12], o (transl) [B, 3]
     or None, v_posed [B, V, 3] -> [B, V, 3]."""
-    global launches
     _check(A, o, v_posed, table)
     B, V = v_posed.shape[:2]
     out = torch.empty_like(v_posed, memory_format=torch.contiguous_format)
@@ -182,7 +178,7 @@ def skin_cuda_forward(A: torch.Tensor, o: Optional[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"lbs_skin forward launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    OBS.count("skin/cuda")
     return out
 
 
@@ -191,7 +187,6 @@ def skin_cuda_backward(A: torch.Tensor, v_posed: torch.Tensor,
                        need_joints: bool, need_offset: bool):
     """The backward kernels: (d v_posed, d A, d o) given g = d out, each
     None unless asked for."""
-    global launches
     _check(A, None, v_posed, table)
     B, V = v_posed.shape[:2]
     J = A.shape[1]
@@ -212,7 +207,7 @@ def skin_cuda_backward(A: torch.Tensor, v_posed: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"lbs_skin backward launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    OBS.count("skin/cuda")
     return dvp, dA, dO
 
 
@@ -242,7 +237,6 @@ def skin(A: torch.Tensor, transl: Optional[torch.Tensor],
     differentiable in A, transl and v_posed: the kernel pair for CUDA
     tensors, the plain version for CPU tensors."""
     if v_posed.is_cuda or A.is_cuda:
-        OBS.count("skin/cuda")
         return _Skin.apply(A, transl, v_posed, table)
     OBS.count("skin/plain")
     return skin_plain(A, transl, v_posed, table.weights)

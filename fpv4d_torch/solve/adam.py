@@ -100,7 +100,6 @@ class Adam:
                              self.mu, self.nu, self.count, self.lr, self.b1,
                              self.b2, self.eps)
             return
-        OBS.count("adam/cuda")
         if any(p.grad is not g for p, g in zip(self.params, self._grads)):
             raise RuntimeError("a leaf's .grad was replaced: the Adam kernel "
                                "steps the gradients its table was built "

@@ -83,39 +83,30 @@ step reads (the leaves, the Adam state, targets, weights, scenes,
 grids) is fixed for the life of the program, one fit. A failed capture
 or replay raises: there is no fallback to the eager route.
 
-The kernels' launch counts (the ``launches`` of each module in
-``COUNTED``) grow where their wrappers run, which a replay does not: the
-program takes back what the wrappers counted while the step was being
-captured (the capture launches nothing) and adds, for each replay, the
-launches one captured step holds.
-
 With tracing on (utils/observability.py) a capture is a span
 ``capture/<phase>``, a refresh a span ``refresh/<phase>`` and a ``call``'s
 eager warm-up a span ``warmup/<phase>`` (the key's first element), and
 each replay of a ``call`` adds one to the counter ``replays/<phase>``.
+The counters made where the step's code runs (each kernel's route,
+``k1/cuda`` and the like) are not made by a replay, which runs no
+Python: a capture keeps what the step counted apart (the capture
+launches nothing) and each replay adds it. With tracing off a capture
+counts nothing, and its replays add nothing.
 """
 from __future__ import annotations
 
 import gc
 import time
-from typing import Callable, Dict, Hashable, List, Optional, Sequence
+from typing import Callable, Dict, Hashable, Optional, Sequence
 
 import torch
 
-from fpv4d_torch.ops import adam_cuda, cand_cuda, chamfer_cuda, skin_cuda
 from fpv4d_torch.utils import observability as OBS
 
 # eager steps of a key before its capture (cuBLAS handles and
 # workspaces, the model's per-subset tables and the DCT basis are made
 # there, never inside a capture)
 WARMUP_STEPS = 2
-
-# the modules whose `launches` counts a replay must advance
-COUNTED = (cand_cuda, chamfer_cuda, skin_cuda, adam_cuda)
-
-
-def _counts() -> List[int]:
-    return [m.launches for m in COUNTED]
 
 
 class CudaGraphStep:
@@ -414,8 +405,8 @@ class PhaseProgram:
     def _replay(self, captured):
         graph, per_step = captured
         graph.replay()
-        for m, n in zip(COUNTED, per_step):
-            m.launches += n
+        for name, n in per_step.items():
+            OBS.count(name, n)
         return graph.out
 
     def _side(self, step: Callable[[], torch.Tensor]) -> torch.Tensor:
@@ -432,12 +423,8 @@ class PhaseProgram:
 
     def _capture(self, key: Hashable, step: Callable):
         t0 = time.perf_counter()
-        before = _counts()
-        with OBS.span(f"capture/{key[0]}"):
+        with OBS.span(f"capture/{key[0]}"), OBS.counted_apart() as per_step:
             graph = self._make_graph(step, self.pool, self.stream)
-        per_step = [a - b for a, b in zip(_counts(), before)]
-        for m, n in zip(COUNTED, before):
-            m.launches = n
         self.capture_seconds[key] = time.perf_counter() - t0
         self._steps[key] = (graph, per_step)
         return graph, per_step

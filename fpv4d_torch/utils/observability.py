@@ -18,7 +18,10 @@ torch.autograd.set_detect_anomaly(True) around every step
     ``fpv4d.<name>`` (on the profiler's clock, the clock of the device
     activity in the same trace); `count(name, n)`, an in-memory counter
     (``ClipSolver.fit`` resets them and keeps them as its
-    ``trace_counts``); and with ``sections=True`` the device section
+    ``trace_counts``), among them each hand-written kernel's route,
+    ``<k>/cuda`` at each launch and ``<k>/plain`` at each call of its
+    plain version (k1, k2, skin, adam), which solve/step_graph.py counts
+    through a captured graph's replays; and with ``sections=True`` the device section
     marks `mark(section, x)` and `section(name, device)`: one-thread
     marker kernels (csrc/mark.cu) named ``fpv4d_mark_<section>_<edge>``,
     launched inside the step, so a captured CUDA graph holds them and
@@ -111,6 +114,21 @@ def count(name: str, n: int = 1) -> None:
 
 def reset_counts() -> None:
     _counts.clear()
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """The counts made inside the context kept out of the counters and
+    yielded: a dict that holds them on exit (what a CUDA graph's capture,
+    which runs nothing, would have counted; each replay adds it)."""
+    global _counts
+    outer, _counts = _counts, {}
+    apart: Dict[str, int] = {}
+    try:
+        yield apart
+    finally:
+        apart.update(_counts)
+        _counts = outer
 
 
 def counts() -> Dict[str, int]:

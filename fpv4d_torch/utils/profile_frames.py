@@ -48,6 +48,7 @@ import torch.distributed as dist
 from fpv4d_torch.ops import cand_cuda, chamfer_cuda
 from fpv4d_torch.parallel import sharding as SH
 from fpv4d_torch.parallel.multi_clip import MultiClipSolver, pad_scenes
+from fpv4d_torch.utils import observability as OBS
 from fpv4d_torch.utils.bench_problem import standard_problem
 from fpv4d_torch.utils.profile_local import _device_spans, _sync, busy_span
 
@@ -89,18 +90,21 @@ class _Timed:
 def _fit(prob, mesh, dev) -> dict:
     """The fenced local fit on the frames mesh."""
     mc = MultiClipSolver(solver=prob.solver, mesh=mesh)
-    cand_cuda.launches = chamfer_cuda.launches = 0
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     tm = {}
+    OBS.reset_counts()
     t0 = time.perf_counter()
-    mc.fit(prob.body[None], prob.cam[None], pad_scenes([prob.scene]),
-           mode="local", timings=tm)
+    with OBS.tracing():
+        mc.fit(prob.body[None], prob.cam[None], pad_scenes([prob.scene]),
+               mode="local", timings=tm)
     _sync(dev)
+    counts = OBS.counts()
     return {"seconds": time.perf_counter() - t0,
             "stages_s": {k: v for k, v in tm.items() if k != "_fences"},
-            "launches": [cand_cuda.launches, chamfer_cuda.launches],
+            "launches": [counts.get("k1/cuda", 0),
+                         counts.get("k2/cuda", 0)],
             "capture_s": {" ".join(map(str, k)): v
                           for k, v in mc.capture_seconds_by_key.items()},
             "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30

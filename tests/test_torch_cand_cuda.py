@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from fpv4d_torch.ops import cand_cuda as C
+from fpv4d_torch.utils import observability as OBS
 
 
 @pytest.fixture
@@ -38,12 +39,36 @@ def _inputs(T=7, N=300, P=192, seed=0, device="cpu"):
             torch.as_tensor(valid, device=device))
 
 
+def _launches(fn):
+    """fn() under tracing -> (its result, K1's launches counted)."""
+    OBS.reset_counts()
+    with OBS.tracing():
+        out = fn()
+        n = OBS.counts().get("k1/cuda", 0)
+    OBS.reset_counts()
+    return out, n
+
+
+def test_route_counters_name_the_plain_version_on_the_cpu():
+    """cand_nn counts k1/plain for CPU tensors while tracing is on, and
+    nothing while it is off."""
+    q, cand, valid = _inputs(T=5, N=20, P=16)
+    OBS.reset_counts()
+    C.cand_nn(q, cand, valid)
+    assert OBS.counts() == {}
+    with OBS.tracing():
+        C.cand_nn(q, cand, valid)
+        C.nn_to_candidates(q, cand, valid)
+        counts = OBS.counts()
+    OBS.reset_counts()
+    assert counts == {"k1/plain": 2}
+
+
 def test_cpu_tensors_take_plain_version():
     q, cand, valid = _inputs()
-    before = C.launches
-    d, slot, near = C.cand_nn(q, cand, valid)
+    (d, slot, near), n = _launches(lambda: C.cand_nn(q, cand, valid))
     d_p, s_p, n_p = C.cand_nn_plain(q, cand, valid)
-    assert C.launches == before               # no kernel launch counted
+    assert n == 0                             # no kernel launch counted
     assert torch.equal(d, d_p) and torch.equal(slot, s_p)
     assert torch.equal(near, n_p)
     assert slot.dtype == torch.int32 and d.shape == (7, 300)
@@ -69,10 +94,9 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 @pytest.mark.parametrize("P", [192, 512, 700])
 def test_kernel_matches_plain_bit_exactly(cuda_device, P):
     q, cand, valid = _inputs(P=P, device=cuda_device)
-    before = C.launches
-    d_k, s_k, n_k = C.cand_nn_cuda(q, cand, valid)
+    (d_k, s_k, n_k), n = _launches(lambda: C.cand_nn_cuda(q, cand, valid))
     d_p, s_p, n_p = C.cand_nn_plain(q, cand, valid)
-    assert C.launches == before + 1
+    assert n == 1
     assert torch.equal(d_k, d_p) and torch.equal(s_k, s_p)
     assert torch.equal(n_k, n_p)
     qk = q.clone().requires_grad_(True)
@@ -93,9 +117,8 @@ def test_kernel_beyond_65535_frames(cuda_device, T, N):
     cand = torch.randn((T, 192, 3), device=cuda_device, generator=gen)
     valid = torch.rand((T, 192), device=cuda_device, generator=gen) > 0.3
     valid[-1] = False
-    before = C.launches
-    d_k, s_k, n_k = C.cand_nn_cuda(q, cand, valid)
-    assert C.launches == before + 1
+    (d_k, s_k, n_k), n = _launches(lambda: C.cand_nn_cuda(q, cand, valid))
+    assert n == 1
     d_p, s_p, n_p = C.cand_nn_plain(q, cand, valid)
     assert torch.equal(d_k, d_p) and torch.equal(s_k, s_p)
     assert torch.equal(n_k, n_p)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from fpv4d_torch.ops import chamfer_cuda as K
+from fpv4d_torch.utils import observability as OBS
 
 
 @pytest.fixture
@@ -30,10 +31,19 @@ def _clouds(N=100, M=777, seed=0, scale=1.0, B=2):
     return x, y
 
 
+def _launches(fn):
+    """fn() under tracing -> (its result, K2's launches counted)."""
+    OBS.reset_counts()
+    with OBS.tracing():
+        out = fn()
+        n = OBS.counts().get("k2/cuda", 0)
+    OBS.reset_counts()
+    return out, n
+
+
 def test_route_counters_name_the_plain_version_on_the_cpu():
     """nn_index counts k2/plain for CPU tensors while tracing is on, and
     nothing while it is off."""
-    from fpv4d_torch.utils import observability as OBS
     x, y = _clouds(7, 40, 26)
     xt, yt = torch.as_tensor(x), torch.as_tensor(y)
     OBS.reset_counts()
@@ -51,10 +61,9 @@ def test_route_counters_name_the_plain_version_on_the_cpu():
 def test_cpu_tensors_take_plain_version():
     x, y = _clouds(30, 64, 14)
     xt, yt = torch.as_tensor(x), torch.as_tensor(y)
-    before = K.launches
-    d, i = K.nn_index(xt, yt)
+    (d, i), n = _launches(lambda: K.nn_index(xt, yt))
     d_p, i_p = K.nn_distance_plain(xt, yt)
-    assert K.launches == before
+    assert n == 0
     assert torch.equal(d, d_p) and torch.equal(i, i_p)
 
 
@@ -84,10 +93,9 @@ def test_kernel_matches_plain_bit_exactly(cuda_device, N, M, scale):
     x[0, :n_eq] = y[:n_eq]                    # exact matches
     xt = torch.as_tensor(x, device=cuda_device)
     yt = torch.as_tensor(y, device=cuda_device)
-    before = K.launches
-    d_k, i_k = K.nn_distance_cuda(xt, yt)
+    (d_k, i_k), n = _launches(lambda: K.nn_distance_cuda(xt, yt))
     d_p, i_p = K.nn_distance_plain(xt, yt)
-    assert K.launches == before + 1
+    assert n == 1
     assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
     xk = xt.clone().requires_grad_(True)
     xp = xt.clone().requires_grad_(True)
@@ -167,9 +175,8 @@ def test_kernel_over_a_clip_axis(cuda_device):
     yb = torch.as_tensor(pad_scenes([y, y1]), device=cuda_device)
     xb = torch.as_tensor(np.stack([x[:3], x[3:] + np.float32(0.3)]),
                          device=cuda_device)
-    before = K.launches
-    d_k, i_k = K.nn_distance_cuda(xb, yb)
-    assert K.launches == before + 1
+    (d_k, i_k), n = _launches(lambda: K.nn_distance_cuda(xb, yb))
+    assert n == 1
     d_p, i_p = K.nn_distance_plain(xb, yb)
     assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
     assert int(i_k[1].max()) < 3001
@@ -221,9 +228,9 @@ def test_kernel_at_the_cell_shape(cuda_device, shuffled):
     yt = torch.as_tensor(y, device=cuda_device)
     rechecks = torch.zeros(xt.shape[:-1], dtype=torch.int32,
                            device=cuda_device)
-    before = K.launches
-    d_k, i_k = K.nn_distance_cuda(xt, yt, rechecks=rechecks)
-    assert K.launches == before + 1
+    (d_k, i_k), n = _launches(
+        lambda: K.nn_distance_cuda(xt, yt, rechecks=rechecks))
+    assert n == 1
     d_p, i_p = K.nn_distance_plain(xt, yt)
     assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
     assert bool((rechecks >= 1).all())
@@ -242,9 +249,8 @@ def test_kernel_over_a_ragged_clip_axis(cuda_device, sizes):
     yb = torch.as_tensor(pad_scenes([y[:sizes[0]], y[:sizes[1]] + 0.5]),
                          device=cuda_device)
     xb = torch.as_tensor(x, device=cuda_device)
-    before = K.launches
-    d_k, i_k = K.nn_distance_cuda(xb, yb)
-    assert K.launches == before + 1
+    (d_k, i_k), n = _launches(lambda: K.nn_distance_cuda(xb, yb))
+    assert n == 1
     d_p, i_p = K.nn_distance_plain(xb, yb)
     assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
     for c in range(2):

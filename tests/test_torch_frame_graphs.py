@@ -30,8 +30,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from fpv4d_torch.config import FrameFitConfig, KeypointFitConfig
 from fpv4d_torch.models import motion_gru, smplx, vposer
-from fpv4d_torch.ops import cand_cuda, chamfer_cuda
 from fpv4d_torch.solve import frame_fit, keypoint_fit, step_graph
+from fpv4d_torch.utils import observability as OBS
 from fpv4d_torch.utils.bench_problem import keypoint_problem
 
 T = 8
@@ -271,18 +271,21 @@ def test_entry_point_defaults_to_the_card_and_graphs(name):
 
 
 @pytest.mark.parametrize("which", ["keypoints", "smoothers"])
-def test_no_kernel_launch_is_counted(kp_setup, clip, graph_route, which,
-                                     monkeypatch):
-    monkeypatch.setattr(cand_cuda, "launches", 0)
-    monkeypatch.setattr(chamfer_cuda, "launches", 0)
+def test_no_kernel_launch_is_counted(kp_setup, clip, graph_route, which):
+    """Under tracing, neither K1 nor K2 is counted on either route (the
+    kernel's or the plain version's)."""
     graph_route(RerunCapture)
-    if which == "keypoints":
-        for case in ("plain", "batched", "hands_face"):
-            _fit(kp_setup, case)
-    else:
-        for s in _SMOOTHERS:
-            _smooth(clip, s)
-    assert (cand_cuda.launches, chamfer_cuda.launches) == (0, 0)
+    OBS.reset_counts()
+    with OBS.tracing():
+        if which == "keypoints":
+            for case in ("plain", "batched", "hands_face"):
+                _fit(kp_setup, case)
+        else:
+            for s in _SMOOTHERS:
+                _smooth(clip, s)
+        counts = OBS.counts()
+    OBS.reset_counts()
+    assert not [k for k in counts if k.startswith(("k1/", "k2/"))], counts
 
 
 def test_profile_stages_rehearsal(capsys):

@@ -17,14 +17,15 @@
   package, at tests/test_torch_clip_solve.py's tolerances;
 * the Adam state through utils/checkpoint.py resuming a solve to the
   same result;
-* launch accounting: replays x the launches one captured step holds,
-  the capture itself not counted;
+* launch accounting, through the route counters under tracing
+  (utils/observability.py): replays x what one captured call counted,
+  the capture itself not counted, for a call, a segment and a refresh;
+  a capture made with tracing off adds nothing on its replays;
 * the segment (PhaseProgram.segment, a frames rank's pieces between its
   collectives): outputs and input gradients bit-equal to plain autograd
   over warm-up, capture and replays, two segments chained through an
   eager autograd.Function; an input at a new address copied into the
-  captured buffer, one at that address not; K1's and K2's counts over
-  warm-up, capture and replays (forward and backward graphs); the sync
+  captured buffer, one at that address not; the sync
   guard, and no collective, inside every captured segment of a frames
   rank's step (rank 0 of two, its partner's collectives answered in
   this process);
@@ -43,13 +44,13 @@ import torch
 import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from fpv4d_torch.ops import cand_cuda, chamfer_cuda
 from fpv4d_torch.parallel import sharding as SH
 from fpv4d_torch.parallel.multi_clip import MultiClipSolver
 from fpv4d_torch.solve import step_graph
 from fpv4d_torch.solve.adam import Adam
 from fpv4d_torch.solve.clip_solve import ClipSolver
 from fpv4d_torch.utils import checkpoint as CK
+from fpv4d_torch.utils import observability as OBS
 from fpv4d_torch.utils.bench_problem import fleet_batch, standard_problem
 
 # ClipState's leaf shapes at T = 12, one DCT window
@@ -352,35 +353,87 @@ class CountingCapture:
         pass
 
 
-def test_launch_accounting(monkeypatch):
-    """Warm-up steps are counted by the wrappers, the capture is not,
-    and each replay adds the launches of one captured step; a second run
-    of a key replays from its first step."""
-    monkeypatch.setattr(cand_cuda, "launches", 0)
-    monkeypatch.setattr(chamfer_cuda, "launches", 0)
+def _stand_in_kernels(*_):
+    """One call's stand-in kernels: K1's route counted once, K2's
+    twice."""
+    OBS.count("k1/cuda")
+    OBS.count("k2/cuda", 2)
+    return torch.zeros(())
 
-    def step():
-        cand_cuda.launches += 1
-        chamfer_cuda.launches += 2
-        return torch.zeros(())
 
+class _CountedBackward(torch.autograd.Function):
+    """A stand-in kernel whose backward launches twice (K2's count)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x * 3.0
+
+    @staticmethod
+    def backward(ctx, g):
+        OBS.count("k2/cuda", 2)
+        return g * 3.0
+
+
+def _k12() -> tuple:
+    got = OBS.counts()
+    return got.get("k1/cuda", 0), got.get("k2/cuda", 0)
+
+
+@pytest.mark.parametrize("route", ["call", "segment", "refresh"])
+def test_launch_accounting(route):
+    """The route counters through a program, under tracing: warm-up
+    calls count as the kernels count them, a capture counts nothing, and
+    each replay adds what one captured call counted (a segment's forward
+    and backward graphs each theirs). A call goes through ``run``, whose
+    later runs of a key replay from their first step; a refresh's first
+    call runs it eagerly once (its result dropped), then replays its
+    capture."""
     prog = step_graph.PhaseProgram("cpu", True, CountingCapture)
-    h = prog.run(("a",), step, 10)
-    assert h.shape == (10,)
-    assert (cand_cuda.launches, chamfer_cuda.launches) == (10, 20)
-    prog.run(("a",), step, 7)
-    assert (cand_cuda.launches, chamfer_cuda.launches) == (17, 34)
-    w = step_graph.WARMUP_STEPS
-    prog.run(("b",), step, w - 1)                       # all warm-up
-    prog.run(("b",), step, 1)                           # the last of it
-    assert ("b",) not in prog._steps
-    assert (cand_cuda.launches, chamfer_cuda.launches) == (17 + w, 34 + 2 * w)
-    prog.run(("b",), step, 3)                           # capture, 3 replays
-    assert ("b",) in prog._steps
-    assert (cand_cuda.launches, chamfer_cuda.launches) == (
-        20 + w, 40 + 2 * w)
-    assert set(prog.capture_seconds) == {("a",), ("b",)}
-    assert prog.run(("c",), step, 0).shape == (0,)
+    x = torch.ones(3, requires_grad=True)
+
+    def fn(x):
+        OBS.count("k1/cuda")
+        return _CountedBackward.apply(x).sum()
+
+    once = {"call": lambda: prog.run(("a",), _stand_in_kernels, 1),
+            "segment": lambda: prog.segment(("a",), fn, x).backward(),
+            "refresh": lambda: prog.refresh(
+                ("a",), lambda _: (_stand_in_kernels(),))}[route]
+    extra = int(route == "refresh")
+    OBS.reset_counts()
+    with OBS.tracing():
+        for n in range(1, 8):
+            once()
+            assert _k12() == (n + extra, 2 * (n + extra))
+        if route == "segment":
+            # a call whose output is not differentiated replays no backward
+            with torch.no_grad():
+                prog.segment(("a",), fn, x)
+            assert _k12() == (8, 14)
+        if route == "call":
+            prog.run(("a",), _stand_in_kernels, 5)
+            assert _k12() == (12, 24)
+            assert OBS.counts()["replays/a"] == 12 - step_graph.WARMUP_STEPS
+    OBS.reset_counts()
+    assert set(prog.capture_seconds) == (
+        {("a", "forward"), ("a", "backward")} if route == "segment"
+        else {("a",)})
+
+
+def test_capture_untraced_adds_nothing_on_replays():
+    """A capture made with tracing off counts nothing, so its replays
+    add nothing, even with tracing on; ``replays/<phase>`` still counts
+    each replay."""
+    prog = step_graph.PhaseProgram("cpu", True, CountingCapture)
+    prog.run(("a",), _stand_in_kernels, step_graph.WARMUP_STEPS + 1)
+    assert prog._steps[("a",)][1] == {}
+    OBS.reset_counts()
+    with OBS.tracing():
+        prog.run(("a",), _stand_in_kernels, 5)
+        counts = OBS.counts()
+    OBS.reset_counts()
+    assert counts == {"replays/a": 5}
+    assert prog.run(("c",), _stand_in_kernels, 0).shape == (0,)
 
 
 def test_routes_on_the_cpu():
@@ -503,44 +556,6 @@ def test_segment_copies_only_inputs_at_a_new_address(monkeypatch):
         prog.segment(("s",), lambda a, b: a + b, fixed, torch.zeros(4))
 
 
-class _CountedBackward(torch.autograd.Function):
-    """A stand-in kernel whose backward launches twice (K2's count)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x * 3.0
-
-    @staticmethod
-    def backward(ctx, g):
-        chamfer_cuda.launches += 2
-        return g * 3.0
-
-
-def test_segment_launch_accounting(monkeypatch):
-    """K1 counted in a segment's forward, K2 in its backward: warm-up
-    calls count as the wrappers count them, the captures count nothing,
-    each replay of the forward and of the backward graph adds what one
-    call launched."""
-    monkeypatch.setattr(cand_cuda, "launches", 0)
-    monkeypatch.setattr(chamfer_cuda, "launches", 0)
-
-    def fn(x):
-        cand_cuda.launches += 1
-        return _CountedBackward.apply(x).sum()
-
-    prog = step_graph.PhaseProgram("cpu", True, CountingCapture)
-    x = torch.ones(3, requires_grad=True)
-    for n in range(1, 7):
-        prog.segment(("s",), fn, x).backward()
-        assert (cand_cuda.launches, chamfer_cuda.launches) == (n, 2 * n)
-    assert set(prog.capture_seconds) == {("s", "forward"),
-                                         ("s", "backward")}
-    # a call whose output is not differentiated replays no backward
-    with torch.no_grad():
-        prog.segment(("s",), fn, x)
-    assert (cand_cuda.launches, chamfer_cuda.launches) == (7, 12)
-
-
 def _local_collectives(monkeypatch):
     """torch.distributed's all_gather and all_reduce answered in this
     process for rank 0 of two frames ranks whose partner holds the same
@@ -622,10 +637,11 @@ def test_graph_route_matches_eager_on_the_card(cuda_device, mode, nn_impl):
     runs = {}
     for graphs in (False, True):
         s.step_graphs = graphs
-        cand_cuda.launches = chamfer_cuda.launches = 0
-        _, hist = s.fit(prob.body, prob.cam, mode=mode)
+        with OBS.tracing():
+            _, hist = s.fit(prob.body, prob.cam, mode=mode)
         torch.cuda.synchronize()
-        runs[graphs] = (hist, cand_cuda.launches, chamfer_cuda.launches)
+        got = s.trace_counts
+        runs[graphs] = (hist, got.get("k1/cuda", 0), got.get("k2/cuda", 0))
     (he, k1e, k2e), (hg, k1g, k2g) = runs[False], runs[True]
     assert (k1g, k2g) == (k1e, k2e) and k1e + k2e > 0
     assert set(s.capture_seconds) == set(hg) | (
