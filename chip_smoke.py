@@ -2230,6 +2230,8 @@ def _fk_phase(prob, dev, state, n_a):
             fk.rigid_transform_prod = (fk.rigid_transform
                                        if name == "adjoint"
                                        else fk.rigid_transform_ref)
+            # the graphs kept from the last fit hold the other FK
+            solver.close()
             _, fit_s, hist, _ = _run_fit(solver, prob, "local", (n_a, 0),
                                          f"local/FK {name}")
             fits[name].append((fit_s, dict(solver.phase_seconds), hist))
@@ -2541,8 +2543,10 @@ def _refresh_ms(solver, state, phase, graphs, reps=20):
 
 def _compiled_phase(prob, dev, n_a, n_dct_b):
     """Phase 32: the compiled phase. The standard local fit four times in
-    turns, eager (step_graphs=False), graph, graph, eager; then
-    global/brute and dct/grid once on each route (graph first). Each run
+    turns, eager (step_graphs=False), graph, graph, eager (the second
+    graph fit replays the graphs the solver kept from the first and
+    captures nothing); then global/brute and dct/grid once on each route
+    (graph first). Each run
     counted (_counted), the peak memory reset: per phase the wall
     ms per step, the fit's seconds, the capture seconds (the captured
     refresh and detection among them), the peak memory and the
@@ -2553,7 +2557,7 @@ def _compiled_phase(prob, dev, n_a, n_dct_b):
     bit-equal to the eager one's. Returns the per-run records."""
     from fpv4d_torch.utils.bench_problem import standard_problem
 
-    def run(pr, mode, graphs, expect, label):
+    def run(pr, mode, graphs, expect, label, captures=None):
         solver = pr.solver
         solver.step_graphs = graphs
         torch.cuda.empty_cache()
@@ -2574,7 +2578,7 @@ def _compiled_phase(prob, dev, n_a, n_dct_b):
         if got != expect:
             raise AssertionError(f"compiled {label} {route}: launches "
                                  f"{got}, expected {expect}")
-        if graphs != bool(cap):
+        if bool(cap) != (graphs if captures is None else captures):
             raise AssertionError(f"compiled {label} {route}: captures {cap}")
         for k, v in hist.items():
             if not (np.all(np.isfinite(v)) and v[-1] < v[0]):
@@ -2614,8 +2618,9 @@ def _compiled_phase(prob, dev, n_a, n_dct_b):
             raise AssertionError(f"compiled {label}: non-finite leaves")
 
     t0 = time.perf_counter()
-    local = [run(prob, "local", g, (n_a, 0), "local")
-             for g in (False, True, True, False)]
+    local = [run(prob, "local", g, (n_a, 0), "local", c)
+             for g, c in ((False, False), (True, True), (True, False),
+                          (False, False))]
     hold(local[1], local[0], "local run 2 vs 1")
     hold(local[2], local[3], "local run 3 vs 4")
     prob_b = standard_problem(device=dev, nn_impl="brute")

@@ -89,6 +89,15 @@ class Adam:
             torch._foreach_zero_([p.grad for p in self.params])
 
     @torch.no_grad()
+    def reset(self) -> None:
+        """The state of a new Adam over the same leaves, made in place (a
+        captured step goes on reading these tensors): moments, count and
+        gradients 0."""
+        torch._foreach_zero_(self.mu + self.nu
+                             + [p.grad for p in self.params])
+        self.count.zero_()
+
+    @torch.no_grad()
     def step(self) -> None:
         """One step of every leaf (an adam section of
         utils/observability.py): the kernel for CUDA leaves, the foreach

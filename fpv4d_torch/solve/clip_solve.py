@@ -30,10 +30,16 @@ counterpart of the reference's one jitted lax.scan per phase; on the CPU
 (and on the card with ``step_graphs=False``) the same step runs eagerly.
 The contact refresh and the SDF linearization between a phase's chunks
 and the planted-foot detection run through the same program (on the
-card each captured once per fit, writing into the buffers the phase's
-graph reads), the counterparts of the reference's jitted ones. The
-optimizer is solve/adam.py, optax.adam's arithmetic with its state on
-the device.
+card each captured once, writing into the buffers the phase's graph
+reads), the counterparts of the reference's jitted ones. The optimizer
+is solve/adam.py, optax.adam's arithmetic with its state on the device.
+
+On the card a solver keeps the program of its first fit, graphs and
+all, for its life, as the reference keeps its jitted phases in
+``self._compiled``: a later fit of the same signature (``_signature``)
+copies its leaves, targets and weights into the buffers the graphs read,
+zeroes the Adam state in place and replays from its first step, with no
+eager warm-up and no capture.
 
 Differences of form from the reference, none of value:
   * a phase's gradient mask detaches the leaves it does not optimize,
@@ -187,6 +193,21 @@ def _cands_tuple(fc: NN.FrameCands) -> tuple:
     return fc.cand, fc.valid
 
 
+class _Kept(NamedTuple):
+    """A graph-route phase program kept for a solver's life, the
+    signature of the fits it serves (ClipSolver._signature), and the
+    leaves its graphs read with the Adam over them (the program stages
+    the fits' other inputs itself)."""
+    signature: tuple
+    program: step_graph.PhaseProgram
+    state: ClipState
+    opt: Adam
+
+    def serves(self, signature: tuple) -> bool:
+        (mine, held), (theirs, given) = self.signature, signature
+        return mine == theirs and all(a is b for a, b in zip(held, given))
+
+
 def _sdf_tuple(lin: SDF.SdfLin) -> tuple:
     return lin.s0, lin.g, lin.v0
 
@@ -239,7 +260,15 @@ class ClipSolver:
 
     step_graphs: None runs each phase's step as a CUDA graph on a CUDA
     device and eagerly on the CPU; False runs it eagerly on either (the
-    card's route to compare with); True on the CPU raises."""
+    card's route to compare with); True on the CPU raises. On the graph
+    route the solver keeps its fits' phase program until a fit of
+    another signature (``_signature``: the clip's length, the config, the
+    route, the section-marks switch, the scene, grid and SDF objects) or
+    ``close``. The graphs also hold what the signature does not cover:
+    the model, the VPoser weights, the vertex sets and any module-level
+    function a step calls (a kernel route, the FK). A caller that swaps
+    one of these between fits calls ``close`` first, or the next fit
+    replays graphs of the old one."""
 
     def __init__(self, model: SmplxModel, vposer_params: Dict,
                  scene_verts, contact_vids, contact_vids_left,
@@ -286,6 +315,8 @@ class ClipSolver:
         # the last fit's trace counters (utils/observability.py; empty
         # with tracing off)
         self.trace_counts: Dict[str, int] = {}
+        # the graph-route program kept from fit to fit
+        self._kept: Optional[_Kept] = None
 
         # anti-skate vertex set: stratified sample + both feet
         n_sub = config.skate_subset
@@ -593,8 +624,49 @@ class ClipSolver:
         return ClipState(*leaves), Adam(leaves, lr=self.config.lr)
 
     def program(self) -> step_graph.PhaseProgram:
-        """A phase program for one fit on this solver's route."""
+        """A new phase program on this solver's route (fit keeps the one
+        it makes on the graph route; the fleet and the profiles make one
+        a call)."""
         return step_graph.PhaseProgram(self.device, self.step_graphs)
+
+    def close(self) -> None:
+        """Drop the kept program: its graphs, memory pool, side stream
+        and the inputs they read. The next fit captures anew."""
+        if self._kept is not None:
+            self._kept.program.close()
+            self._kept = None
+
+    def _signature(self, body_75) -> tuple:
+        """What a fit's graphs are captured for: the clip's length, the
+        config (the graphs hold its weights and rates, and the leaves'
+        shapes follow from it and the length), the route and the
+        section-marks switch (marks are kernels in the graphs); then the
+        contact sources, which callers swap between fits, compared by
+        identity (the graphs hold their addresses)."""
+        return ((np.shape(body_75)[0], self.config, self.step_graphs,
+                 OBS.sections_on), (self.scene, self.grid, self.sdf))
+
+    def _inputs(self, program: step_graph.PhaseProgram, signature: tuple,
+                state: ClipState, target_6d: torch.Tensor,
+                frame_weights: torch.Tensor) -> tuple:
+        """A fit's (leaves, Adam, target_6d, frame_weights), where the
+        program's graphs read them: the targets and weights staged; the
+        leaves and their Adam made by the first fit of a graph-route
+        program and kept with it, and a later fit's values copied into
+        them, its Adam state zeroed, in place."""
+        target_6d, frame_weights = program.stage(
+            ("init", "targets"), (target_6d, frame_weights))
+        kept = self._kept
+        if kept is None:
+            state, opt = self.make_optimizer(state)
+            if program.graphs:
+                self._kept = _Kept(signature, program, state, opt)
+            return state, opt, target_6d, frame_weights
+        with torch.no_grad():
+            for held, x in zip(kept.state, state):
+                held.copy_(x)
+        kept.opt.reset()
+        return kept.state, kept.opt, target_6d, frame_weights
 
     @staticmethod
     def _run_steps(state: ClipState, opt: Adam, mask: ClipState,
@@ -746,29 +818,45 @@ class ClipSolver:
         count are written there after every phase, as ``<phase>.pt``
         (utils/checkpoint.py).
 
-        Returns the final state and the per-step loss history of each
-        phase; the wall seconds of each stage land in
-        ``self.phase_seconds``, the seconds of each phase's graph
-        captures (inside its stage's) in ``self.capture_seconds``.
+        On the graph route the fit runs on the program kept from an
+        earlier fit of its signature (``_signature``), replaying its
+        graphs, or on a new one that it keeps (closing the one kept
+        before); a fit that raises keeps none.
+
+        Returns a copy of the final state and the per-step loss history
+        of each phase; the wall seconds of each stage land in
+        ``self.phase_seconds``, the seconds of this fit's graph captures
+        (inside its stage's) in ``self.capture_seconds``, empty when
+        every graph was kept.
 
         With tracing on (utils/observability.py) the fit is a span
         ``fit`` holding a span ``phase/<stage>`` for each stage of
         ``phase_seconds`` and ``checkpoint`` for each checkpoint; the
         counters are reset at its start and kept in
-        ``self.trace_counts`` after it, with ``device_allocs``, the
-        allocator's device allocations during the fit, on a card."""
+        ``self.trace_counts`` after it, with ``captures``, the graphs
+        this fit captured, and ``device_allocs``, the allocator's device
+        allocations during the fit, on a card."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}: one of {MODES}")
         OBS.reset_counts()
         allocs = self._device_allocs()
+        signature = self._signature(body_75)
         with OBS.span("fit"):
-            program = self.program()
+            if self._kept is not None and not self._kept.serves(signature):
+                self.close()
+            program = self._kept.program if self._kept else self.program()
+            program.capture_seconds.clear()
             try:
                 return self._fit(body_75, camera_ext, mode, verbose,
-                                 checkpoint_dir, program)
+                                 checkpoint_dir, program, signature)
+            except BaseException:
+                self.close()
+                raise
             finally:
                 self.capture_seconds = capture_seconds(program)
-                program.close()
+                if self._kept is None:
+                    program.close()
+                OBS.count("captures", len(program.capture_seconds))
                 if allocs is not None:
                     OBS.count("device_allocs",
                               self._device_allocs() - allocs)
@@ -782,7 +870,7 @@ class ClipSolver:
         return torch.cuda.memory_stats(self.device)["num_device_alloc"]
 
     def _fit(self, body_75, camera_ext, mode, verbose, checkpoint_dir,
-             program):
+             program, signature):
         cfg = self.config
         hist: Dict[str, np.ndarray] = {}
         self.phase_seconds = {}
@@ -799,7 +887,8 @@ class ClipSolver:
         def init():
             state, target_6d, frame_weights = self.init_state(body_75,
                                                               camera_ext)
-            return (*self.make_optimizer(state), target_6d, frame_weights)
+            return self._inputs(program, signature, state, target_6d,
+                                frame_weights)
 
         state, opt, target_6d, frame_weights = timed("init", init)
 
@@ -823,7 +912,10 @@ class ClipSolver:
             weight_right = timed("detect_contact", lambda: program.refresh(
                 ("detect_contact",), lambda _: (self.detect_contact(state),))
                 [0])
-            weight_right = weight_right.to(self.device)
+            # at one address from fit to fit, where a kept skate graph
+            # reads it
+            weight_right, = program.stage(("skate", "weight_right"),
+                                          (weight_right.to(self.device),))
             n_c = int(cfg.contact_phase_frac * cfg.num_iter)
             hist["local_skate"] = timed("local_skate", lambda:
                                         self._run_skate_phase(
@@ -843,7 +935,7 @@ class ClipSolver:
             for k, v in hist.items():
                 print(f"[fpv4d_torch.clip_solve] {k}: loss {v[0]:.4f} -> "
                       f"{v[-1]:.4f} ({len(v)} steps)")
-        return ClipState(*(x.detach() for x in state)), hist
+        return ClipState(*(x.detach().clone() for x in state)), hist
 
     def result_params(self, state: ClipState
                       ) -> Tuple[np.ndarray, float, np.ndarray]:

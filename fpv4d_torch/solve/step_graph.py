@@ -35,8 +35,10 @@ fits the next frame. ``PhaseProgram.run`` runs a phase's steps:
   steps, each replay's loss copied from the graph's static output into
   the phase's history on the device. Later runs of the same key (the
   next chunk of a phase whose candidate tables are refreshed between
-  chunks) replay the graph from their first step. Every graph of one
-  program shares one memory pool, released by ``close``;
+  chunks, or the same phase of a later fit on a program that a
+  ``ClipSolver`` keeps) replay the graph from their first step. Every
+  graph of one program shares one memory pool and one side stream,
+  released by ``close``;
 * on the eager route (the CPU, and the card when asked), the same step
   runs ``num_steps`` times.
 
@@ -78,10 +80,13 @@ A graph reads its inputs at the addresses it was captured on. Inputs
 that change between runs of one key go through ``stage``: a captured
 refresh's tables are already in its buffers, and any other value
 (dct_a's hoisted joints, tables made outside the program) is copied
-into the buffers of the first; everything else a
-step reads (the leaves, the Adam state, targets, weights, scenes,
-grids) is fixed for the life of the program, one fit. A failed capture
-or replay raises: there is no fallback to the eager route.
+into the buffers of the first; everything else a step reads (the
+leaves, the Adam state, targets, weights, scenes, grids) is fixed for
+the life of the program. A program lives for one call of its caller,
+except a ``ClipSolver``'s: its fits copy their leaves, targets and
+weights into the buffers the kept graphs read and zero the Adam state
+in place (solve/clip_solve.py). A failed capture or replay raises:
+there is no fallback to the eager route.
 
 With tracing on (utils/observability.py) a capture is a span
 ``capture/<phase>``, a refresh a span ``refresh/<phase>`` and a ``call``'s
@@ -90,8 +95,9 @@ each replay of a ``call`` adds one to the counter ``replays/<phase>``.
 The counters made where the step's code runs (each kernel's route,
 ``k1/cuda`` and the like) are not made by a replay, which runs no
 Python: a capture keeps what the step counted apart (the capture
-launches nothing) and each replay adds it. With tracing off a capture
-counts nothing, and its replays add nothing.
+launches nothing), with tracing on or off, and each replay adds it while
+tracing is on; so a graph captured untraced and replayed traced counts
+as one captured traced does.
 """
 from __future__ import annotations
 
@@ -258,9 +264,10 @@ class _Segment(torch.autograd.Function):
 
 
 class PhaseProgram:
-    """The phases of one fit on `device`: captured and replayed
-    (`graphs`, CUDA only) or eager. `make_graph(step, pool, stream)`
-    captures a step (CudaGraphStep; the tests pass a stand-in)."""
+    """The phases of the fits it serves on `device`: captured and
+    replayed (`graphs`, CUDA only) or eager. `make_graph(step, pool,
+    stream)` captures a step (CudaGraphStep; the tests pass a
+    stand-in)."""
 
     def __init__(self, device, graphs: bool,
                  make_graph: Callable = CudaGraphStep):

@@ -47,6 +47,9 @@ spans_on = False
 sections_on = False
 # the counters since the last `reset_counts`
 _counts: Dict[str, int] = {}
+# whether a `counted_apart` context is open (its counts are kept whatever
+# `spans_on` is)
+_apart = False
 # the sections a mark may name and the edges of each, in the order of
 # csrc/mark.cu's kernels
 SECTIONS = ("vposer", "blend", "fk", "skin", "contact", "losses", "adam",
@@ -84,8 +87,9 @@ def tracing(on: bool = True, sections: bool = False):
     The switch is read where a site runs: a captured CUDA graph keeps
     the marks of the setting it was captured under, and each replay of
     it launches them whatever the setting is then. ``ClipSolver.fit``
-    captures its graphs anew each fit, so toggling between fits is
-    enough; graphs kept across fits would keep their marks."""
+    keeps its graphs across fits under a signature that holds the
+    section-marks switch, so a fit with the other setting captures
+    anew."""
     global spans_on, sections_on
     sections = bool(on and sections)
     if sections and torch.cuda.is_available():
@@ -107,8 +111,9 @@ def span(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add n to counter `name` while tracing is on."""
-    if spans_on:
+    """Add n to counter `name` while tracing is on, or inside
+    `counted_apart` whatever the setting."""
+    if spans_on or _apart:
         _counts[name] = _counts.get(name, 0) + n
 
 
@@ -118,17 +123,19 @@ def reset_counts() -> None:
 
 @contextlib.contextmanager
 def counted_apart():
-    """The counts made inside the context kept out of the counters and
-    yielded: a dict that holds them on exit (what a CUDA graph's capture,
-    which runs nothing, would have counted; each replay adds it)."""
-    global _counts
+    """The counts made inside the context, with tracing on or off, kept
+    out of the counters and yielded: a dict that holds them on exit (what
+    a CUDA graph's capture, which runs nothing, would have counted; each
+    replay adds it while tracing is on)."""
+    global _counts, _apart
     outer, _counts = _counts, {}
+    was, _apart = _apart, True
     apart: Dict[str, int] = {}
     try:
         yield apart
     finally:
         apart.update(_counts)
-        _counts = outer
+        _counts, _apart = outer, was
 
 
 def counts() -> Dict[str, int]:

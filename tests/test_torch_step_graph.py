@@ -20,7 +20,8 @@
 * launch accounting, through the route counters under tracing
   (utils/observability.py): replays x what one captured call counted,
   the capture itself not counted, for a call, a segment and a refresh;
-  a capture made with tracing off adds nothing on its replays;
+  a capture made with tracing off keeps its step's counts all the same,
+  and its replays add them while tracing is on;
 * the segment (PhaseProgram.segment, a frames rank's pieces between its
   collectives): outputs and input gradients bit-equal to plain autograd
   over warm-up, capture and replays, two segments chained through an
@@ -29,14 +30,23 @@
   guard, and no collective, inside every captured segment of a frames
   rank's step (rank 0 of two, its partner's collectives answered in
   this process);
-* on the card (`gpu`), the graph route against the eager one, and a
-  segment chained with an eager op, graph against eager.
+* the program a solver keeps across its fits, on the stand-in route:
+  a second fit of another clip captures nothing and gives a new
+  solver's bits, leaving the state the first fit returned as it was; a
+  fit at another length captures anew and gives a new solver's bits; the
+  section marks, the route, the config and the scene tensor each key a
+  new program;
+* on the card (`gpu`), the graph route against the eager one; fits of
+  clips A, B, A on one solver, each bit-equal to a new solver's, the
+  last two capturing nothing and holding no more memory; and a segment
+  chained with an eager op, graph against eager.
 
 The module imports no JAX: the card's machine runs its `gpu` test with
 ``--noconftest``, and the tests that hold the port to JAX import it
 inside (skipping where it is missing, which it is not here).
 """
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -270,7 +280,9 @@ def test_graph_route_plumbing_matches_eager(mode, nn_impl, sdf):
     made = _programmed(prob.solver, RerunCapture)
     graphed = prob.solver.fit(prob.body, prob.cam, mode=mode)
     assert made[0].capture_seconds                    # it captured
-    assert not (made[0]._steps or made[0]._static)    # closed after fit
+    assert made[0]._steps                             # kept after the fit
+    prob.solver.close()
+    assert not (made[0]._steps or made[0]._static)    # dropped by close
     _equal_runs(graphed, eager)
 
 
@@ -281,6 +293,86 @@ def test_fleet_graph_route_plumbing_matches_eager():
     eager = mc.fit(bodies, cams, scenes, mode="local")
     _programmed(prob.solver, RerunCapture)
     _equal_runs(mc.fit(bodies, cams, scenes, mode="local"), eager)
+
+
+# -- the program a solver keeps across its fits -----------------------------------
+
+def _clips(prob):
+    """Clips A and B of the problem's length (B the body moved by noise)
+    and a clip of twice the length (B, then A)."""
+    bodies, cams, _ = fleet_batch(prob, 2)
+    return ((bodies[0], cams[0]), (bodies[1], cams[1]),
+            (np.concatenate([bodies[1], bodies[0]]),
+             np.concatenate([cams[1], cams[0]])))
+
+
+def _fresh_fit(kw, mode, clip):
+    """A new solver's fit of `clip` on the stand-in graph route."""
+    prob = _small(**kw)
+    _programmed(prob.solver, RerunCapture)
+    return prob.solver.fit(*clip, mode=mode)
+
+
+@pytest.mark.parametrize("case", sorted(_GUARD_CASES))
+def test_kept_program_serves_the_next_fit(case):
+    """Two fits of different clips on one solver: the second captures
+    nothing (``captures`` 0, ``capture_seconds`` empty) and gives a new
+    solver's bits for its clip; the state the first fit returned is
+    unchanged by it."""
+    kw, mode, keys = _GUARD_CASES[case]
+    prob = _small(**kw)
+    made = _programmed(prob.solver, RerunCapture)
+    a, b, _ = _clips(prob)
+    with OBS.tracing():
+        first, _ = prob.solver.fit(*a, mode=mode)
+        assert prob.solver.trace_counts["captures"] == len(keys)
+        before = [x.clone() for x in first]
+        second = prob.solver.fit(*b, mode=mode)
+        assert prob.solver.trace_counts["captures"] == 0
+    assert len(made) == 1 and prob.solver.capture_seconds == {}
+    for x, y in zip(first, before):
+        assert torch.equal(x, y)
+    _equal_runs(second, _fresh_fit(kw, mode, b))
+
+
+@pytest.mark.parametrize("case", sorted(_GUARD_CASES))
+def test_kept_program_gives_way_to_another_length(case):
+    """A fit at twice the length on the same solver closes the kept
+    program, captures anew and gives a new solver's bits."""
+    kw, mode, keys = _GUARD_CASES[case]
+    prob = _small(**kw)
+    made = _programmed(prob.solver, RerunCapture)
+    a, _, long = _clips(prob)
+    prob.solver.fit(*a, mode=mode)
+    got = prob.solver.fit(*long, mode=mode)
+    assert len(made) == 2 and not made[0]._steps
+    assert set(made[1].capture_seconds) == keys
+    _equal_runs(got, _fresh_fit(kw, mode, long))
+
+
+def test_kept_program_keyed_on_its_signature():
+    """A fit with the section marks on, on the other route, with another
+    config or with another scene tensor makes a new program; a fit with
+    none of these changed keeps the last one."""
+    prob = _small(nn_impl="brute")
+    s = prob.solver
+    made = _programmed(s, RerunCapture)
+
+    def fit():
+        s.fit(prob.body, prob.cam, mode="global")
+        return len(made)
+
+    assert fit() == 1 and fit() == 1
+    with OBS.tracing(sections=True):
+        assert fit() == 2
+    assert fit() == 3
+    s.step_graphs = True
+    assert fit() == 4
+    s.config = dataclasses.replace(s.config, lr=s.config.lr / 2)
+    assert fit() == 5
+    s.scene = s.scene.clone()
+    assert fit() == 6 and fit() == 6
+    assert not any(p._steps for p in made[:-1])
 
 
 # -- parity with the JAX package ------------------------------------------------
@@ -421,18 +513,22 @@ def test_launch_accounting(route):
 
 
 def test_capture_untraced_adds_nothing_on_replays():
-    """A capture made with tracing off counts nothing, so its replays
-    add nothing, even with tracing on; ``replays/<phase>`` still counts
-    each replay."""
+    """A capture made with tracing off keeps what its step counted apart
+    as one made with tracing on does, and adds nothing to the counters;
+    its replays add nothing while tracing is off, and with tracing on
+    each adds the route counts (a graph kept across a solver's fits is
+    captured untraced and replayed in a traced fit) besides
+    ``replays/<phase>``."""
     prog = step_graph.PhaseProgram("cpu", True, CountingCapture)
-    prog.run(("a",), _stand_in_kernels, step_graph.WARMUP_STEPS + 1)
-    assert prog._steps[("a",)][1] == {}
     OBS.reset_counts()
+    prog.run(("a",), _stand_in_kernels, step_graph.WARMUP_STEPS + 3)
+    assert prog._steps[("a",)][1] == {"k1/cuda": 1, "k2/cuda": 2}
+    assert OBS.counts() == {}
     with OBS.tracing():
         prog.run(("a",), _stand_in_kernels, 5)
         counts = OBS.counts()
     OBS.reset_counts()
-    assert counts == {"replays/a": 5}
+    assert counts == {"replays/a": 5, "k1/cuda": 5, "k2/cuda": 10}
     assert prog.run(("c",), _stand_in_kernels, 0).shape == (0,)
 
 
@@ -651,6 +747,41 @@ def test_graph_route_matches_eager_on_the_card(cuda_device, mode, nn_impl):
     for k in he:
         rel = np.abs(hg[k] - he[k]) / np.abs(he[k])
         assert np.all(np.isfinite(hg[k])) and rel.max() < 2e-2, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,nn_impl", [("local", "grid"),
+                                          ("global", "brute"),
+                                          ("dct", "grid")])
+def test_kept_program_on_the_card(cuda_device, mode, nn_impl):
+    """T = 12: fits of clips A, B, A on one solver, each history
+    bit-equal to a new solver's fit of its clip; fits 2 and 3 capture
+    nothing, and the memory allocated after fit 3 is what it was after
+    fit 2."""
+    def problem():
+        return standard_problem(T=12, num_verts=512, scene_pts=2500,
+                                num_iter=60, num_iter_dct=200,
+                                skate_subset=64, contact_compact=64,
+                                nn_impl=nn_impl, device=cuda_device)
+
+    prob = problem()
+    bodies, cams, _ = fleet_batch(prob, 2)
+    fresh = [problem().solver.fit(bodies[i], cams[i], mode=mode)[1]
+             for i in (0, 1)]
+    gc.collect()
+    s = prob.solver
+    allocated = []
+    for n, i in enumerate((0, 1, 0)):
+        with OBS.tracing():
+            _, hist = s.fit(bodies[i], cams[i], mode=mode)
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated(cuda_device))
+        assert hist.keys() == fresh[i].keys()
+        for k in hist:
+            assert np.array_equal(hist[k], fresh[i][k]), (n, k)
+        assert (s.trace_counts["captures"] > 0) == (n == 0), n
+        assert bool(s.capture_seconds) == (n == 0), n
+    assert allocated[2] == allocated[1], allocated
 
 
 @pytest.mark.gpu

@@ -69,7 +69,9 @@ def _problem(case, device="cpu"):
 
 def _route(solver, graphs):
     """The solver's programs on the graph route with the stand-in
-    capture (graphs) or eager."""
+    capture (graphs) or eager, its kept program dropped: the next fit
+    makes one and, on the graph route, captures."""
+    solver.close()
     solver.program = (
         (lambda: step_graph.PhaseProgram("cpu", True, RerunCapture))
         if graphs else (lambda: step_graph.eager("cpu")))
